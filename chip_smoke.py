@@ -1,0 +1,496 @@
+"""Smoke run of the PyTorch/CUDA port (haslr_tpu_torch) on one NVIDIA GPU.
+
+Phases, one printed line each (any failure raises):
+
+1. the card (``nvidia-smi`` name and power limit) and the torch device;
+2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (nvcc, sm_90a);
+3. each kernel against its plain PyTorch version on the card, exact, at
+   the shapes the main path gives it, and their times (CUDA events);
+4. the golden assembly (``tests/golden``) through the CUDA consensus,
+   byte for byte;
+5. the consensus workload (4096 windows x 13 reads x ~300 bp at 6 %
+   error): windows/s on the card beside the native POA on one CPU core,
+   and the card's output equal to the CPU plain path's on 256 windows;
+6. the five-stage pipeline (``haslr_tpu_torch.cli.haslr``) end to end on
+   a simulated 4.6 Mb genome: stage times, contigs, NG50, interior 31-mer
+   recall, and the kernel launch counts of that run.
+
+Then a JSON line of kernel records, the card's name and power limit, and
+as the last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
+device, the CUDA toolkit (nvcc) and g++; exits non-zero without them.
+
+Usage: python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gzip
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TOL = "exact (integer DP scores and vote counts)"
+E2E_SCALE = 4_600_000  # bp: the JAX package's recorded 4.6 Mb tier
+
+
+def _line(tag, **fields):
+    print(f"[{tag}] " + json.dumps(fields), flush=True)
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def mutated_batch(rng, B, S, pad_rows=4, sub=0.04, ins=0.03, dele=0.03):
+    """Reads mutated from random drafts (the reference tests' batches);
+    rows 0 and 1 are out of the admission gate, the last ``pad_rows``
+    rows pure padding (r_len = d_len = 0)."""
+    import numpy as np
+
+    reads = np.full((B, S), 4, np.uint8)
+    drafts = np.full((B, S), 4, np.uint8)
+    r_lens = np.zeros(B, np.int32)
+    d_lens = np.zeros(B, np.int32)
+    for b in range(B - pad_rows):
+        dl = int(rng.integers(50, S - 10))
+        d = rng.integers(0, 4, dl).astype(np.uint8)
+        x = rng.random(dl)
+        extra = rng.integers(0, 4, dl).astype(np.uint8)
+        r = []
+        for p in range(dl):
+            if x[p] < dele:
+                continue
+            if x[p] < dele + ins:
+                r.append(int(extra[p]))
+            if x[p] < dele + ins + sub:
+                r.append(int(extra[p]))
+                continue
+            r.append(int(d[p]))
+        r = np.array(r[:S], np.uint8)
+        reads[b, : len(r)] = r
+        drafts[b, :dl] = d
+        r_lens[b] = len(r)
+        d_lens[b] = dl
+    r_lens[0] = min(int(r_lens[0]), 60)
+    d_lens[0] = max(int(d_lens[0]), 60 + S // 4)
+    r_lens[1], d_lens[1] = d_lens[1], r_lens[1]
+    return reads, r_lens, drafts, d_lens
+
+
+def overflow_batch(rng, B, S):
+    """Indel-dense reads (an insertion after every other base of the
+    first 80) that need more CIGAR runs than a small MAXR."""
+    import numpy as np
+
+    reads = np.full((B, S), 4, np.uint8)
+    drafts = np.full((B, S), 4, np.uint8)
+    r_lens = np.zeros(B, np.int32)
+    d_lens = np.zeros(B, np.int32)
+    for b in range(B):
+        d = rng.integers(0, 4, 150).astype(np.uint8)
+        r = []
+        for p, ch in enumerate(d):
+            r.append(int(ch))
+            if p % 2 == 0 and p < 80:
+                r.append(int(rng.integers(0, 4)))
+        reads[b, : len(r)] = r
+        drafts[b, :150] = d
+        r_lens[b] = len(r)
+        d_lens[b] = 150
+    return reads, r_lens, drafts, d_lens
+
+
+def _to(dev, *arrays):
+    import torch
+
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _max_err(pairs):
+    """Max |kernel - plain| over tensor pairs; raises on any difference."""
+    worst = 0
+    for name, a, b in pairs:
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: shape {a.shape} != {b.shape}")
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        if err:
+            raise AssertionError(f"{name}: kernel != plain (max |d| {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def check_votes(dev, S, W, B, seed):
+    """B1 on the card vs its plain version: planes, stats and the reduced
+    vote tables, every row (in and out of the gate, pad rows)."""
+    import numpy as np
+    import torch
+
+    from haslr_tpu_torch.kernels import consensus_dense as cd
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    rng = np.random.default_rng(seed)
+    args = _to(dev, *mutated_batch(rng, B, S))
+    planes_k, stats_k = rs.rowscan_votes(*args, W, 5, -4, -8)
+    planes_p, stats_p = rs.rowscan_votes_plain(*args, W, 5, -4, -8)
+    N = 8
+    win = torch.from_numpy(rng.integers(0, N, B)).to(dev)
+    r_lens, d_lens = args[1], args[3]
+    ok = (r_lens > 0) & (d_lens > 0) & ((r_lens - d_lens).abs() < W // 2 - 4)
+    tabs_k = cd._vote_tables(planes_k, stats_k, win, ok, N, S)
+    tabs_p = cd._vote_tables(planes_p, stats_p, win, ok, N, S)
+    names = ("counts", "cov_diff", "ins1", "ins2", "n_reads")
+    return _max_err(
+        [("planes", planes_k, planes_p), ("stats", stats_k, stats_p)]
+        + [(n, a, b) for n, a, b in zip(names, tabs_k, tabs_p)]
+    )
+
+
+def check_cigar(dev, S, W, B, seed, maxr=None, overflow=False):
+    """B2 on the card vs its plain version: run counts and run slots."""
+    import numpy as np
+
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    rng = np.random.default_rng(seed)
+    batch = overflow_batch(rng, B, S) if overflow else \
+        mutated_batch(rng, B, S)
+    args = _to(dev, *batch)
+    maxr = maxr or max(128, S // 4)
+    runs_k, n_k = rs.rowscan_cigar(*args, W, 2, -4, -2, maxr)
+    runs_p, n_p = rs.rowscan_cigar_plain(*args, W, 2, -4, -2, maxr)
+    if overflow and not bool((n_k > maxr).any()):
+        raise AssertionError("overflow batch did not overflow MAXR")
+    return _max_err([("n_runs", n_k, n_p), ("runs", runs_k, runs_p)])
+
+
+def time_pair(dev, S, W, B, seed):
+    """(kernel ms, plain ms) of B1 and B2 at one shape: CUDA events around
+    warm launches, the two versions interleaved."""
+    import numpy as np
+    import torch
+
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    rng = np.random.default_rng(seed)
+    args = _to(dev, *mutated_batch(rng, B, S, pad_rows=0))
+
+    def ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    maxr = max(128, S // 4)
+    out = {}
+    for name, kern, plain, extra in (
+        ("rowscan_votes", rs.rowscan_votes, rs.rowscan_votes_plain,
+         (5, -4, -8)),
+        ("rowscan_cigar", rs.rowscan_cigar, rs.rowscan_cigar_plain,
+         (2, -4, -2, maxr)),
+    ):
+        p1 = ms(lambda: plain(*args, W, *extra), 1)
+        k1 = ms(lambda: kern(*args, W, *extra), 5)
+        k2 = ms(lambda: kern(*args, W, *extra), 5)
+        p2 = ms(lambda: plain(*args, W, *extra), 1)
+        out[name] = (min(k1, k2), min(p1, p2))
+    return out
+
+
+def make_windows(seed=0, n_windows=4096, n_support=13, win_len=300,
+                 error_rate=0.06):
+    """The consensus benchmark's windows (a copy of ``bench.py``'s
+    generator, which imports jax)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = "ACGT"
+
+    def mutate(s):
+        out = []
+        for ch in s:
+            r = rng.random()
+            if r < error_rate / 3:
+                continue
+            if r < 2 * error_rate / 3:
+                out.append(bases[rng.integers(0, 4)])
+            else:
+                out.append(ch)
+                if r < error_rate:
+                    out.append(bases[rng.integers(0, 4)])
+        return "".join(out)
+
+    windows = []
+    for _ in range(n_windows):
+        L = int(rng.integers(win_len * 2 // 3, win_len * 4 // 3))
+        true = "".join(bases[i] for i in rng.integers(0, 4, L))
+        windows.append([mutate(true) for _ in range(n_support)])
+    return windows
+
+
+def phase_golden(dev, tmp):
+    """The port's run_assembler on the golden input reproduces the
+    reference's pinned device-engine outputs byte for byte."""
+    from haslr_tpu.config import AssembleConfig
+    from haslr_tpu_torch.assemble.pipeline import run_assembler
+
+    gold = os.path.join(ROOT, "tests", "golden")
+    paths = {}
+    for name in ("contigs.fa", "lr.fa", "map.paf"):
+        paths[name] = os.path.join(tmp, name)
+        with gzip.open(f"{gold}/input/{name}.gz", "rb") as fi, \
+                open(paths[name], "wb") as fo:
+            fo.write(fi.read())
+    out = os.path.join(tmp, "golden_asm")
+    t0 = time.time()
+    with open(os.devnull, "w") as log:
+        run_assembler(paths["contigs.fa"], paths["lr.fa"], paths["map.paf"],
+                      out, cfg=AssembleConfig(consensus_engine="tpu"),
+                      log=log, device=dev)
+    for name in ("asm.final.fa", "asm.final.ann"):
+        with open(f"{gold}/expected/tpu.{name}", "rb") as f:
+            want = f.read()
+        with open(f"{out}/{name}", "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"golden {name} differs")
+    return time.time() - t0
+
+
+def phase_consensus(dev, n_windows=4096, n_check=256, n_poa=512):
+    """Windows/s of the port's consensus on ``dev`` and of the native POA
+    on one core; the card's output equals the CPU plain path's on
+    ``n_check`` windows."""
+    import torch
+
+    from haslr_tpu import native
+    from haslr_tpu.core import seq as cseq
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    windows = make_windows(n_windows=n_windows)
+    code_wins = [[cseq.encode(s) for s in w] for w in windows[:n_poa]]
+    native.poa_consensus_native(code_wins[:2])  # build / load the library
+    t0 = time.time()
+    native.poa_consensus_native(code_wins, n_threads=1)
+    poa_rate = len(code_wins) / (time.time() - t0)
+
+    batched_consensus(windows[:64], device=dev)  # first-call warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    out = batched_consensus(windows, device=dev)
+    dt = time.time() - t0
+    sub = windows[:n_check]
+    on_dev = batched_consensus(sub, device=dev)
+    on_cpu = batched_consensus(sub, device="cpu")
+    if on_dev != on_cpu or on_dev != out[:n_check]:
+        raise AssertionError("consensus on the card != CPU plain path")
+    return {
+        "windows": len(windows), "windows_per_s": len(windows) / dt,
+        "seconds": dt, "poa_1core_windows_per_s": poa_rate,
+        "poa_windows": len(code_wins), "cpu_plain_equal_windows": n_check,
+    }
+
+
+def build_dataset(data_dir, genome_len, seed=7):
+    """The 4.6 Mb end-to-end dataset (``scripts/bench_e2e.py``'s
+    parameters: 30 repeat families x 8 copies, 40x SR, 15x LR at 6 %),
+    simulated once and cached in ``data_dir``."""
+    import numpy as np
+
+    from haslr_tpu.testutil import simulate
+
+    g_path = f"{data_dir}/genome.txt"
+    sr_path = f"{data_dir}/sr.fq"
+    lr_path = f"{data_dir}/lr.fa"
+    if all(os.path.isfile(p) for p in (g_path, sr_path, lr_path)):
+        return g_path, sr_path, lr_path
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genome = simulate.genome_with_repeats(
+        rng, genome_len, n_families=max(2, genome_len // 153_000),
+        copies_per_family=8, repeat_len=400,
+    )
+    srs = simulate.make_short_reads(rng, genome, coverage=40.0)
+    simulate.write_short_reads(sr_path, srs)
+    del srs
+    lrs = simulate.make_reads(rng, genome, coverage=15.0, mean_len=9000,
+                              error_rate=0.06)
+    with open(lr_path, "w") as fp:
+        for r in lrs:
+            fp.write(f">sim{r.rid}\n{r.seq}\n")
+    with open(g_path + ".tmp", "w") as fp:
+        fp.write(genome)
+    os.replace(g_path + ".tmp", g_path)
+    return g_path, sr_path, lr_path
+
+
+def canonical_kmers(seq, k=31):
+    """Sorted unique canonical k-mers of an ACGT string, 2 bits a base."""
+    import numpy as np
+
+    from haslr_tpu.core import seq as cseq
+
+    c = cseq.encode(seq).astype(np.uint64)
+    n = len(c) - k + 1
+    if n <= 0:
+        return np.zeros(0, np.uint64)
+    rc = (3 - c)[::-1]
+    fw = np.zeros(n, np.uint64)
+    bw = np.zeros(n, np.uint64)
+    for i in range(k):
+        fw = (fw << np.uint64(2)) | c[i : i + n]
+        bw = (bw << np.uint64(2)) | rc[i : i + n]
+    return np.unique(np.minimum(fw, bw[::-1]))
+
+
+def phase_e2e(dev, scale, threads, tmp):
+    """The pipeline CLI end to end; returns its record (stage times,
+    contigs, NG50, recall, launches)."""
+    import numpy as np
+
+    from haslr_tpu.core import io as cio
+    from haslr_tpu_torch.aligner import map as amap
+    from haslr_tpu_torch.cli import haslr as cli
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    t0 = time.time()
+    g_path, sr_path, lr_path = build_dataset(
+        os.path.join(tempfile.gettempdir(), "haslr_smoke_data", str(scale)),
+        scale,
+    )
+    sim_s = time.time() - t0
+    out = os.path.join(tmp, "e2e")
+    argv = ["-o", out, "-g", str(scale), "-l", lr_path, "-x", "pacbio",
+            "-s", sr_path, "-t", str(threads), "--device", dev.type]
+    for name in rs.LAUNCHES:
+        rs.LAUNCHES[name] = 0
+    t0 = time.time()
+    with open(os.path.join(tmp, "e2e.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        rc = cli.main(argv)
+    wall = time.time() - t0
+    launches = dict(rs.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"pipeline exit code {rc}")
+    final = [f for f in os.listdir(out) if f.startswith("asm_")
+             and os.path.isdir(os.path.join(out, f))][0]
+    recs = list(cio.read_fastx(os.path.join(out, final, "asm.final.fa")))
+    lens = sorted((len(r.seq) for r in recs), reverse=True)
+    with open(g_path) as f:
+        genome = f.read().strip()
+    acc, ng50 = 0, 0
+    for L in lens:
+        acc += L
+        if acc >= len(genome) / 2:
+            ng50 = L
+            break
+    gk = canonical_kmers(genome[1500:-1500])
+    ak = np.unique(np.concatenate(
+        [canonical_kmers(r.seq) for r in recs] or [np.zeros(0, np.uint64)]
+    ))
+    recall = len(np.intersect1d(gk, ak, assume_unique=True)) / len(gk)
+    return {
+        "scale_bp": scale, "threads": threads, "sim_s": sim_s,
+        "wall_s": wall, "stages_s": dict(cli.STAGE_TIMES),
+        "align_phases_s": dict(amap.PROF),
+        "n_contigs": len(recs), "total_bp": int(sum(lens)), "ng50": ng50,
+        "kmer31_recall": recall, "launches": launches,
+    }
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke run needs an NVIDIA GPU")
+    from haslr_tpu_torch.device import resolve_device
+    from haslr_tpu_torch.kernels import _build
+
+    dev = resolve_device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = _smi()
+    _line("1 card", nvidia_smi=smi, torch_device=kind,
+          torch=torch.__version__, cuda=torch.version.cuda)
+
+    build_s, log = _build.build_info()
+    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    _line("2 build", seconds=build_s, ptxas=ptxas)
+
+    errs = {"rowscan_votes": 0, "rowscan_cigar": 0}
+    t0 = time.time()
+    for S, W in ((512, 128), (1024, 128), (2048, 256), (4096, 512)):
+        errs["rowscan_votes"] = max(errs["rowscan_votes"],
+                                    check_votes(dev, S, W, 64, S))
+    for S, W, B in ((256, 128, 64), (1024, 128, 64), (2048, 256, 32),
+                    (8192, 512, 16)):
+        errs["rowscan_cigar"] = max(errs["rowscan_cigar"],
+                                    check_cigar(dev, S, W, B, S + 1))
+    errs["rowscan_cigar"] = max(
+        errs["rowscan_cigar"],
+        check_cigar(dev, 256, 128, 32, 23, maxr=64, overflow=True),
+    )
+    times = {S: time_pair(dev, S, 128, 2048, S + 2) for S in (512, 1024)}
+    _line("3 kernel == plain", tolerance=TOL,
+          votes_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
+          cigar_shapes="S,W = 256,128 1024,128 2048,256 8192,512 "
+                       "+ MAXR overflow",
+          max_abs_err=errs, seconds=time.time() - t0,
+          ms_kernel_plain_B2048={
+              f"S{S}_W128": {k: {"kernel_ms": v[0], "plain_ms": v[1]}
+                             for k, v in t.items()}
+              for S, t in times.items()
+          })
+
+    with tempfile.TemporaryDirectory(prefix="haslr_smoke_") as tmp:
+        golden_s = phase_golden(dev, tmp)
+        _line("4 golden", identical=["tpu.asm.final.fa", "tpu.asm.final.ann"],
+              seconds=golden_s)
+
+        _line("5 consensus", device=kind, **phase_consensus(dev))
+
+        rec = phase_e2e(dev, E2E_SCALE, os.cpu_count() or 1, tmp)
+        _line("6 end to end", device=kind, **rec)
+    if rec["n_contigs"] != 1 or rec["kmer31_recall"] < 0.999:
+        raise AssertionError(
+            f"end to end: {rec['n_contigs']} contigs, recall "
+            f"{rec['kmer31_recall']:.5f} (want 1 contig, >= 0.999)"
+        )
+    for name, n in rec["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} not launched end to end")
+
+    src = "haslr_tpu_torch/csrc/rowscan.cu"
+    replaces = {
+        "rowscan_votes": "haslr_tpu/kernels/nw_rowscan.py:469",
+        "rowscan_cigar": "haslr_tpu/kernels/nw_rowscan.py:692",
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src,
+         "replaces": replaces[name], "launches": rec["launches"][name],
+         "max_abs_err": errs[name], "ms": times[512][name][0],
+         "plain_ms": times[512][name][1]}
+        for name in ("rowscan_votes", "rowscan_cigar")
+    ]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,24 @@
+"""haslr_tpu_torch — the haslr hybrid assembler on PyTorch and CUDA.
+
+A second package beside :mod:`haslr_tpu` (JAX + Pallas), which stays the
+reference it is tested against.  It runs the ``haslr`` pipeline's main
+path with the device work in PyTorch and hand-written CUDA kernels for
+NVIDIA Hopper (``csrc/``); all host code that imports no framework
+(``core/``, the assembler's graph stack, the short-read stage, the
+aligner's index, seeding, chaining and emit, the C++ in ``native/``) is
+imported from :mod:`haslr_tpu` and shared, not copied.
+
+- ``device``            torch device selection (no global device state).
+- ``kernels/``          the row-scan DP kernels (CUDA + plain PyTorch) and
+                        the dense window-consensus engine.
+- ``aligner/``          long-read mapping with the device extension.
+- ``assemble/``         consensus-engine selection and ``run_assembler``.
+- ``cli/haslr``         the five-stage pipeline driver (``--device``).
+
+Importing this package never imports torch or jax, and never builds a
+kernel: the CUDA sources are compiled with ``nvcc`` at first launch.
+"""
+
+__version__ = "0.1.0"
+
+from haslr_tpu.config import AssembleConfig, PipelineConfig  # noqa: F401

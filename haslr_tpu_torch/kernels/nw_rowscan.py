@@ -1,0 +1,405 @@
+"""Row-scan banded NW: plain PyTorch versions and the CUDA kernel wrappers.
+
+Port of :mod:`haslr_tpu.kernels.nw_rowscan`.  The DP scans one read row
+per step over a W-lane band that follows the length-proportional
+diagonal; the in-row LEFT chain collapses to a prefix max
+(``torch.cummax`` here, exact for every W — the Pallas ``_prefix_max``
+was exact only for W <= 128).  A row-lockstep traceback then emits one
+of three products:
+
+- vote planes + aligned span (:func:`rowscan_votes`, consensus rounds) —
+  CUDA kernel ``hx_rowscan_votes`` in ``csrc/rowscan.cu``;
+- CIGAR runs (:func:`rowscan_cigar`, the aligner's extension) — CUDA
+  kernel ``hx_rowscan_cigar``;
+- the read->draft mapping (:func:`rowscan_mapping_plain`, tests only).
+
+Each wrapper takes its plain version for tensors on the CPU and launches
+its kernel for CUDA tensors (or raises); there is no fallback between the
+two.  Every entry point checks :func:`rowscan_supported`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+NEG = -(10**8)
+DIAG, UP, LEFT = 0, 1, 2
+
+# direction-scratch budget per launch, by device type: the wrappers cut
+# the batch so that (rows + 1) * W bytes per read stay within it
+DIRS_BUDGET = {"cuda": 4 << 30, "cpu": 256 << 20}
+
+# kernel launches by wrapper (plain-version calls do not count); reset
+# and read by callers that must show the main path went through a kernel
+LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0}
+
+
+def row_bases(R: int, D: int, W: int) -> np.ndarray:
+    """Lane-0 draft column per read row i in [0, R]: the
+    length-proportional diagonal minus W/2, clipped and monotone.  For the
+    production shapes (R == D) consecutive steps are in {0, 1}."""
+    i = np.arange(R + 1, dtype=np.int64)
+    center = (i * D) // max(R, 1)
+    hi = max(0, D - W + 1)
+    base = np.clip(center - W // 2, 0, hi)
+    base = np.maximum.accumulate(base)
+    return base.astype(np.int32)
+
+
+def rowscan_supported(R: int, D: int, W: int) -> bool:
+    """The DP assumes the row band advances by {0, 1} columns per row
+    (true whenever D <= R; all production call sites pad to R == D)."""
+    return D <= R or bool((np.diff(row_bases(R, D, W)) <= 1).all())
+
+
+def _check_shape(R: int, D: int, W: int):
+    if not rowscan_supported(R, D, W):
+        raise ValueError(
+            f"row-scan band unsupported for R={R}, D={D}, W={W}: the row "
+            "bases must advance by at most one column per row"
+        )
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions (vectorised over the batch, a Python loop over
+# rows); the CPU path and the reference the CUDA kernels are held to
+# --------------------------------------------------------------------------
+
+
+def rowscan_dirs_plain(reads, r_lens, drafts, d_lens, W, match, mismatch,
+                       gap):
+    """Row-scan DP; returns directions (R+1, B, W) uint8 (row 0 zero)."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    _check_shape(R, D, W)
+    dev = reads.device
+    base = row_bases(R, D, W)
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)
+    glane = gap * lanes
+    rl = r_lens.to(torch.int32)[:, None]
+    dl = d_lens.to(torch.int32)[:, None]
+    neg, match_t, mismatch_t = torch.tensor(
+        [NEG, match, mismatch], dtype=torch.int32, device=dev
+    )
+    h = torch.where(lanes[None, :] <= dl, glane, neg)
+    drafts_p = torch.cat(
+        [drafts, torch.full((B, 1), 4, dtype=drafts.dtype, device=dev)], 1
+    )
+    negcol = torch.full((B, 1), NEG, dtype=torch.int32, device=dev)
+    dirs = torch.zeros((R + 1, B, W), dtype=torch.uint8, device=dev)
+    for i in range(1, R + 1):
+        b_i = int(base[i])
+        s = b_i - int(base[i - 1])
+        hp = torch.cat([negcol, h, negcol], 1)  # lanes -1 .. W
+        up = hp[:, s + 1 : s + 1 + W]
+        diag = hp[:, s : s + W]
+        j = b_i + lanes
+        db = drafts_p[:, torch.clamp(j - 1, 0, D).long()]
+        sub = torch.where(reads[:, i - 1 : i] == db, match_t, mismatch_t)
+        cand_d = diag + sub
+        cand_u = up + gap
+        valid = (j[None, :] <= dl) & (i <= rl)
+        x = torch.where(valid, torch.maximum(cand_d, cand_u), neg) - glane
+        hh = glane + torch.cummax(x, 1).values
+        dirs[i] = torch.where(
+            hh == cand_d, DIAG, torch.where(hh == cand_u, UP, LEFT)
+        ).to(torch.uint8)
+        h = torch.where(valid, hh, neg)
+    return dirs
+
+
+def _traceback(dirs, r_lens, d_lens, R, D, W, on_row):
+    """Row-lockstep traceback over rows r = R .. 1.  For each row calls
+    ``on_row(r, active, is_diag, is_up, jp, j)`` (jp: the acted-on
+    column, j: the column before the act); returns the final j (B,)."""
+    dev = dirs.device
+    base = row_bases(R, D, W)
+    lanes = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    i = r_lens.to(torch.int64).clone()
+    j = d_lens.to(torch.int64).clone()
+    for r in range(R, 0, -1):
+        active = i == r
+        b_r = int(base[r])
+        lane = j - b_r
+        in_band = (lane >= 0) & (lane < W)
+        row = dirs[r].to(torch.int64)
+        val = torch.where(row != LEFT, (lanes << 2) | row, -1)
+        picked = torch.cummax(val, 1).values.gather(
+            1, lane.clamp(0, W - 1)[:, None]
+        )[:, 0]
+        forced = ~in_band | (picked < 0)
+        d = torch.where(forced, UP, picked & 3)
+        jp = b_r + torch.where(forced, lane, picked >> 2)
+        is_diag = active & (d == DIAG)
+        is_up = active & (d == UP)
+        on_row(r, active, is_diag, is_up, jp, j)
+        i = i - active.to(torch.int64)
+        j = torch.where(is_diag, jp - 1, torch.where(is_up, jp, j))
+    return j
+
+
+def rowscan_mapping_plain(reads, r_lens, drafts, d_lens, W, match,
+                          mismatch, gap):
+    """(B, R) int64 read->draft mapping: j for a base aligned to draft
+    column j, -(a+3) for a base inserted after column a, -1 unused."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    dirs = rowscan_dirs_plain(reads, r_lens, drafts, d_lens, W, match,
+                              mismatch, gap)
+    mapping = torch.full((B, R + 1), -1, dtype=torch.int64,
+                         device=reads.device)
+    bidx = torch.arange(B, device=reads.device)
+
+    def on_row(r, active, is_diag, is_up, jp, j):
+        val = torch.where(is_diag, jp - 1, -(jp + 2))
+        mapping[bidx, torch.where(is_diag | is_up, r - 1, R)] = val
+
+    _traceback(dirs, r_lens, d_lens, R, D, W, on_row)
+    return mapping[:, :R]
+
+
+def rowscan_votes_plain(reads, r_lens, drafts, d_lens, W, match, mismatch,
+                        gap):
+    """Plain version of the vote-plane kernel; returns ``planes``
+    (B, 3D + 256) uint8 and ``stats`` (B, 2) int32 (layout in
+    ``csrc/rowscan.cu``)."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    DQ = D + 128
+    dev = reads.device
+    dirs = rowscan_dirs_plain(reads, r_lens, drafts, d_lens, W, match,
+                              mismatch, gap)
+    bidx = torch.arange(B, device=dev)
+    # one dump column past each plane takes the writes that drop
+    pb = torch.full((B, D + 1), 4, dtype=torch.uint8, device=dev)
+    pa = torch.full((B, DQ + 1), 4, dtype=torch.uint8, device=dev)
+    pa2 = torch.full((B, DQ + 1), 4, dtype=torch.uint8, device=dev)
+    st = {
+        "anchor": torch.full((B,), -9, dtype=torch.int64, device=dev),
+        "b_a": torch.full((B,), 4, dtype=torch.int64, device=dev),
+        "b_b": torch.full((B,), 4, dtype=torch.int64, device=dev),
+        "jmn": torch.full((B,), 1 << 29, dtype=torch.int64, device=dev),
+        "jmx": torch.full((B,), -1, dtype=torch.int64, device=dev),
+    }
+
+    def flush(cond):
+        q = st["anchor"] + 1
+        at = torch.where(cond & (q >= 0) & (q < DQ), q, DQ)
+        pa[bidx, at] = st["b_a"].to(torch.uint8)
+        pa2[bidx, at] = st["b_b"].to(torch.uint8)
+
+    def on_row(r, active, is_diag, is_up, jp, j):
+        rb = reads[:, r - 1].to(torch.int64) & 3
+        c = jp - 1
+        pb[bidx, torch.where(is_diag & (c >= 0) & (c < D), c, D)] = \
+            rb.to(torch.uint8)
+        st["jmn"] = torch.where(is_diag, torch.minimum(st["jmn"], c),
+                                st["jmn"])
+        st["jmx"] = torch.where(is_diag, torch.maximum(st["jmx"], c),
+                                st["jmx"])
+        anchor = st["anchor"]
+        same_run = is_up & (anchor == c)
+        ended = active & (anchor >= -1) & ~same_run
+        flush(ended)
+        b_a, b_b = st["b_a"], st["b_b"]
+        st["b_b"] = torch.where(same_run, b_a, torch.where(is_up, 4, b_b))
+        st["b_a"] = torch.where(is_up, rb, torch.where(ended, 4, b_a))
+        st["anchor"] = torch.where(
+            is_up, c, torch.where(ended, -9, anchor)
+        )
+
+    _traceback(dirs, r_lens, d_lens, R, D, W, on_row)
+    flush(st["anchor"] >= -1)
+    planes = torch.cat([pb[:, :D], pa[:, :DQ], pa2[:, :DQ]], 1)
+    stats = torch.stack([st["jmn"], st["jmx"]], 1).to(torch.int32)
+    return planes, stats
+
+
+def rowscan_cigar_plain(reads, r_lens, drafts, d_lens, W, match, mismatch,
+                        gap, maxr):
+    """Plain version of the CIGAR-run kernel; returns ``runs`` (B, maxr)
+    int32 (``(len - 1) << 2 | op``, traceback order, zero past the last
+    emitted slot) and ``n_runs`` (B,) int32, the true run count."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    dev = reads.device
+    dirs = rowscan_dirs_plain(reads, r_lens, drafts, d_lens, W, match,
+                              mismatch, gap)
+    bidx = torch.arange(B, device=dev)
+    runs = torch.zeros((B, maxr + 1), dtype=torch.int64, device=dev)
+    st = {
+        "n": torch.zeros(B, dtype=torch.int64, device=dev),
+        "op": torch.full((B,), -1, dtype=torch.int64, device=dev),
+        "len": torch.zeros(B, dtype=torch.int64, device=dev),
+    }
+
+    def emit(cond, op, length):
+        n = st["n"]
+        runs[bidx, torch.where(cond & (n < maxr), n, maxr)] = \
+            ((length - 1) << 2) | op
+        st["n"] = n + cond.to(torch.int64)
+
+    def on_row(r, active, is_diag, is_up, jp, j):
+        len_d = j - jp
+        emit_d = active & (len_d > 0)
+        emit(emit_d & (st["len"] > 0), st["op"], st["len"])
+        emit(emit_d, LEFT, len_d)
+        cur_len = torch.where(emit_d, 0, st["len"])
+        act_op = torch.where(is_diag, DIAG, UP)
+        open_run = active & (cur_len > 0)
+        emit(open_run & (st["op"] != act_op), st["op"], cur_len)
+        same = open_run & (st["op"] == act_op)
+        st["len"] = torch.where(
+            active, torch.where(same, cur_len + 1, 1), cur_len
+        )
+        st["op"] = torch.where(active, act_op, st["op"])
+
+    j = _traceback(dirs, r_lens, d_lens, R, D, W, on_row)
+    emit(st["len"] > 0, st["op"], st["len"])
+    emit(j > 0, LEFT, j)
+    return runs[:, :maxr].to(torch.int32), st["n"].to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _base_tensor(R, D, W, device):
+    return torch.from_numpy(row_bases(R, D, W)).to(device)
+
+
+def _check_cuda_args(reads, r_lens, drafts, d_lens, W):
+    B = reads.shape[0]
+    for name, t, dtype, shape in (
+        ("reads", reads, torch.uint8, (B, reads.shape[1])),
+        ("r_lens", r_lens, torch.int32, (B,)),
+        ("drafts", drafts, torch.uint8, (B, drafts.shape[1])),
+        ("d_lens", d_lens, torch.int32, (B,)),
+    ):
+        if t.device != reads.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape}"
+                f" on {reads.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}"
+            )
+    if not (32 <= W <= 512 and W % 32 == 0):
+        raise ValueError(f"CUDA row-scan kernels take W in 32..512, "
+                         f"a multiple of 32 (got {W})")
+
+
+def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
+    """Launch kernel ``name`` over the batch in chunks whose direction
+    scratch fits :data:`DIRS_BUDGET`; ``outs`` are (tensor, bytes per
+    read) output pairs, ``extra`` trailing int arguments."""
+    from haslr_tpu_torch.kernels import _build
+
+    B, R = reads.shape
+    D = drafts.shape[1]
+    per_read = (R + 1) * W
+    chunk = max(1, min(B, DIRS_BUDGET["cuda"] // per_read))
+    dirs = torch.empty(chunk * per_read, dtype=torch.uint8,
+                       device=reads.device)
+    base = _base_tensor(R, D, W, reads.device)
+    fn = getattr(_build.lib(), f"hx_{name}")
+    stream = torch.cuda.current_stream(reads.device).cuda_stream
+    for lo in range(0, B, chunk):
+        n = min(chunk, B - lo)
+        err = fn(
+            reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
+            drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
+            base.data_ptr(), dirs.data_ptr(),
+            *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
+            n, R, D, W, *extra, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        LAUNCHES[name] += 1
+
+
+def _on_cpu(reads, r_lens, drafts, d_lens, W) -> bool:
+    """Shared wrapper front: the band check, then True for CPU tensors
+    (take the plain version); CUDA tensors are validated for the kernel,
+    any other device raises."""
+    _check_shape(reads.shape[1], drafts.shape[1], W)
+    if reads.device.type == "cpu":
+        return True
+    if reads.device.type != "cuda":
+        raise ValueError(f"unsupported device {reads.device}")
+    _check_cuda_args(reads, r_lens, drafts, d_lens, W)
+    return False
+
+
+def _chunked_plain(reads, r_lens, drafts, d_lens, W, plain, plain_args):
+    B, R = reads.shape
+    chunk = max(1, DIRS_BUDGET["cpu"] // ((R + 1) * W))
+    parts = [
+        plain(reads[lo : lo + chunk], r_lens[lo : lo + chunk],
+              drafts[lo : lo + chunk], d_lens[lo : lo + chunk], W,
+              *plain_args)
+        for lo in range(0, max(B, 1), chunk)
+    ]
+    return tuple(torch.cat(p, 0) for p in zip(*parts))
+
+
+def rowscan_votes(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
+    """Row-scan DP + vote-plane traceback: ``planes`` (B, 3D + 256) uint8
+    and ``stats`` (B, 2) int32 (min / max aligned draft column).
+
+    CPU tensors: :func:`rowscan_votes_plain`.  CUDA tensors (uint8 codes,
+    int32 lengths, contiguous): the ``hx_rowscan_votes`` kernel."""
+    if _on_cpu(reads, r_lens, drafts, d_lens, W):
+        return _chunked_plain(reads, r_lens, drafts, d_lens, W,
+                              rowscan_votes_plain, (match, mismatch, gap))
+    B = reads.shape[0]
+    D = drafts.shape[1]
+    planes = torch.full((B, 3 * D + 256), 4, dtype=torch.uint8,
+                        device=reads.device)
+    stats = torch.empty((B, 2), dtype=torch.int32, device=reads.device)
+    _launch("rowscan_votes", reads, r_lens, drafts, d_lens, W,
+            ((planes, 3 * D + 256), (stats, 8)), (match, mismatch, gap))
+    return planes, stats
+
+
+def rowscan_cigar(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
+                  maxr):
+    """Row-scan DP + CIGAR-run traceback: ``runs`` (B, maxr) int32 and
+    ``n_runs`` (B,) int32 (> maxr: overflow, the caller realigns).
+
+    CPU tensors: :func:`rowscan_cigar_plain`.  CUDA tensors: the
+    ``hx_rowscan_cigar`` kernel."""
+    if _on_cpu(reads, r_lens, drafts, d_lens, W):
+        return _chunked_plain(reads, r_lens, drafts, d_lens, W,
+                              rowscan_cigar_plain,
+                              (match, mismatch, gap, maxr))
+    B = reads.shape[0]
+    runs = torch.zeros((B, maxr), dtype=torch.int32, device=reads.device)
+    n_runs = torch.empty(B, dtype=torch.int32, device=reads.device)
+    _launch("rowscan_cigar", reads, r_lens, drafts, d_lens, W,
+            ((runs, 4 * maxr), (n_runs, 4)),
+            (match, mismatch, gap, maxr))
+    return runs, n_runs
+
+
+def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
+                          mismatch=-4, gap=-2, maxr=None, device="cpu"):
+    """Align host (numpy) batches on ``device`` and emit CIGAR runs;
+    returns DEVICE tensors ``(runs (B, MAXR) int32, n_runs (B,) int32)``
+    with MAXR = max(128, R // 4) by default (the reference's choice)."""
+    R = reads.shape[1]
+    if maxr is None:
+        maxr = max(128, R // 4)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return rowscan_cigar(
+        put(reads, np.uint8), put(r_lens, np.int32), put(drafts, np.uint8),
+        put(d_lens, np.int32), W, match, mismatch, gap, maxr,
+    )
