@@ -3,9 +3,11 @@
 Phases, one printed line each (any failure raises):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch device;
-2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the card, exact, at
-   the shapes the main path gives it, and their times (CUDA events);
+2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (one nvcc per
+   source, in parallel, sm_90a);
+3. each of the six kernels against its plain PyTorch version on the
+   card, exact, at the shapes its callers give it, and their times (CUDA
+   events);
 4. the golden assembly (``tests/golden``) through the CUDA consensus,
    byte for byte;
 5. the consensus workload (4096 windows x 13 reads x ~300 bp at 6 %
@@ -13,7 +15,21 @@ Phases, one printed line each (any failure raises):
    and the card's output equal to the CPU plain path's on 256 windows;
 6. the five-stage pipeline (``haslr_tpu_torch.cli.haslr``) end to end on
    a simulated 4.6 Mb genome: stage times, contigs, NG50, interior 31-mer
-   recall, and the kernel launch counts of that run.
+   recall, and the kernel launch counts of that run;
+
+then the same paths under the wavefront engine (``nw.ENGINE =
+"wavefront"``, restored after each phase):
+
+7. the oracle: ``nw.banded_nw_batch`` + ``traceback_batch`` equal to
+   ``nw.align_mapping_device`` (wavefront) on 4096 in-gate reads at two
+   shapes, and how many rows the row-scan engine's mapping differs in;
+8. the golden assembly again, byte for byte;
+9. the consensus workload: windows/s, the card equal to the CPU plain
+   path on 256 windows, and how many windows differ from phase 5's;
+10. the 4.6 Mb pipeline resumed from phase 6's output without its PAF and
+    assembly, so that the aligner and the assembler run again: stage
+    times, contigs, NG50, recall, launches, and whether ``asm.final.fa``
+    equals phase 6's.
 
 Then a JSON line of kernel records, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -28,6 +44,7 @@ import contextlib
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -36,6 +53,54 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = "exact (integer DP scores and vote counts)"
 E2E_SCALE = 4_600_000  # bp: the JAX package's recorded 4.6 Mb tier
+
+# kernel: (source, the TPU kernel it replaces, the path whose run counts
+# its launches)
+KERNELS = {
+    "rowscan_votes": ("haslr_tpu_torch/csrc/rowscan.cu",
+                      "haslr_tpu/kernels/nw_rowscan.py:469", "e2e"),
+    "rowscan_cigar": ("haslr_tpu_torch/csrc/rowscan.cu",
+                      "haslr_tpu/kernels/nw_rowscan.py:692", "e2e"),
+    "rowscan_mapping": ("haslr_tpu_torch/csrc/rowscan.cu",
+                        "haslr_tpu/kernels/nw_rowscan.py:422", "oracle"),
+    "wavefront_votes": ("haslr_tpu_torch/csrc/wavefront.cu",
+                        "haslr_tpu/kernels/nw_pallas.py:266", "e2e_wf"),
+    "wavefront_mapping": ("haslr_tpu_torch/csrc/wavefront.cu",
+                          "haslr_tpu/kernels/nw_pallas.py:208", "e2e_wf"),
+    "wavefront_dirs": ("haslr_tpu_torch/csrc/wavefront.cu",
+                       "haslr_tpu/kernels/nw_pallas.py:201", "oracle"),
+}
+
+
+def _counters():
+    from haslr_tpu_torch.kernels import nw_rowscan, nw_wavefront
+
+    return nw_rowscan.LAUNCHES, nw_wavefront.LAUNCHES
+
+
+def reset_launches():
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
+
+
+def launches():
+    rs, wf = _counters()
+    return {**rs, **wf}
+
+
+@contextlib.contextmanager
+def nw_engine(name):
+    """The port's NW engine set to ``name`` for the block, restored
+    after it."""
+    from haslr_tpu_torch.kernels import nw
+
+    old = nw.ENGINE
+    nw.ENGINE = name
+    try:
+        yield
+    finally:
+        nw.ENGINE = old
 
 
 def _line(tag, **fields):
@@ -50,10 +115,12 @@ def _smi():
     ).stdout.strip().splitlines()[0]
 
 
-def mutated_batch(rng, B, S, pad_rows=4, sub=0.04, ins=0.03, dele=0.03):
+def mutated_batch(rng, B, S, pad_rows=4, sub=0.04, ins=0.03, dele=0.03,
+                  gate_w=None):
     """Reads mutated from random drafts (the reference tests' batches);
     rows 0 and 1 are out of the admission gate, the last ``pad_rows``
-    rows pure padding (r_len = d_len = 0)."""
+    rows pure padding (r_len = d_len = 0).  With ``gate_w`` every row is
+    cut to lie inside the gate |r_len - d_len| < gate_w/2 - 4 instead."""
     import numpy as np
 
     reads = np.full((B, S), 4, np.uint8)
@@ -80,6 +147,14 @@ def mutated_batch(rng, B, S, pad_rows=4, sub=0.04, ins=0.03, dele=0.03):
         drafts[b, :dl] = d
         r_lens[b] = len(r)
         d_lens[b] = dl
+    if gate_w is not None:
+        slack = gate_w // 2 - 5
+        r_lens = np.minimum(r_lens, d_lens + slack).astype(np.int32)
+        d_lens = np.minimum(d_lens, r_lens + slack).astype(np.int32)
+        col = np.arange(S)[None, :]
+        reads[col >= r_lens[:, None]] = 4
+        drafts[col >= d_lens[:, None]] = 4
+        return reads, r_lens, drafts, d_lens
     r_lens[0] = min(int(r_lens[0]), 60)
     d_lens[0] = max(int(d_lens[0]), 60 + S // 4)
     r_lens[1], d_lens[1] = d_lens[1], r_lens[1]
@@ -128,19 +203,25 @@ def _max_err(pairs):
     return worst
 
 
-def check_votes(dev, S, W, B, seed):
-    """B1 on the card vs its plain version: planes, stats and the reduced
-    vote tables, every row (in and out of the gate, pad rows)."""
+def check_votes(dev, S, W, B, seed, engine="rowscan"):
+    """B1 (``engine="rowscan"``) or B4 (``"wavefront"``) on the card vs
+    its plain version: planes, stats and the reduced vote tables, every
+    row (in and out of the gate, pad rows)."""
     import numpy as np
     import torch
 
     from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels import nw_rowscan as rs
+    from haslr_tpu_torch.kernels import nw_wavefront as wf
 
+    kern, plain = {
+        "rowscan": (rs.rowscan_votes, rs.rowscan_votes_plain),
+        "wavefront": (wf.wavefront_votes, wf.wavefront_votes_plain),
+    }[engine]
     rng = np.random.default_rng(seed)
     args = _to(dev, *mutated_batch(rng, B, S))
-    planes_k, stats_k = rs.rowscan_votes(*args, W, 5, -4, -8)
-    planes_p, stats_p = rs.rowscan_votes_plain(*args, W, 5, -4, -8)
+    planes_k, stats_k = kern(*args, W, 5, -4, -8)
+    planes_p, stats_p = plain(*args, W, 5, -4, -8)
     N = 8
     win = torch.from_numpy(rng.integers(0, N, B)).to(dev)
     r_lens, d_lens = args[1], args[3]
@@ -172,13 +253,41 @@ def check_cigar(dev, S, W, B, seed, maxr=None, overflow=False):
     return _max_err([("n_runs", n_k, n_p), ("runs", runs_k, runs_p)])
 
 
+def _plain_pairs():
+    """kernel name -> (wrapper, plain version, scores) for B3, B5, B6."""
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+    from haslr_tpu_torch.kernels import nw_wavefront as wf
+
+    return {
+        "rowscan_mapping": (rs.rowscan_mapping, rs.rowscan_mapping_plain,
+                            (5, -4, -8)),
+        "wavefront_mapping": (wf.wavefront_mapping,
+                              wf.wavefront_mapping_plain, (2, -4, -2)),
+        "wavefront_dirs": (wf.wavefront_dirs, wf.wavefront_dirs_plain,
+                           (5, -4, -8)),
+    }
+
+
+def check_plain(dev, name, S, W, B, seed):
+    """B3, B5 or B6 on the card vs its plain version, every row (in and
+    out of the gate, pad rows) and, for B6, every cell."""
+    import numpy as np
+
+    kern, plain, scores = _plain_pairs()[name]
+    rng = np.random.default_rng(seed)
+    args = _to(dev, *mutated_batch(rng, B, S))
+    return _max_err([(name, kern(*args, W, *scores),
+                      plain(*args, W, *scores))])
+
+
 def time_pair(dev, S, W, B, seed):
-    """(kernel ms, plain ms) of B1 and B2 at one shape: CUDA events around
-    warm launches, the two versions interleaved."""
+    """(kernel ms, plain ms) of every kernel at one shape: CUDA events
+    around warm launches, the two versions interleaved."""
     import numpy as np
     import torch
 
     from haslr_tpu_torch.kernels import nw_rowscan as rs
+    from haslr_tpu_torch.kernels import nw_wavefront as wf
 
     rng = np.random.default_rng(seed)
     args = _to(dev, *mutated_batch(rng, B, S, pad_rows=0))
@@ -202,6 +311,9 @@ def time_pair(dev, S, W, B, seed):
          (5, -4, -8)),
         ("rowscan_cigar", rs.rowscan_cigar, rs.rowscan_cigar_plain,
          (2, -4, -2, maxr)),
+        ("wavefront_votes", wf.wavefront_votes, wf.wavefront_votes_plain,
+         (5, -4, -8)),
+        *((k, *v) for k, v in _plain_pairs().items()),
     ):
         p1 = ms(lambda: plain(*args, W, *extra), 1)
         k1 = ms(lambda: kern(*args, W, *extra), 5)
@@ -242,9 +354,10 @@ def make_windows(seed=0, n_windows=4096, n_support=13, win_len=300,
     return windows
 
 
-def phase_golden(dev, tmp):
+def phase_golden(dev, tmp, out_name="golden_asm"):
     """The port's run_assembler on the golden input reproduces the
-    reference's pinned device-engine outputs byte for byte."""
+    reference's pinned device-engine outputs byte for byte (under either
+    NW engine)."""
     from haslr_tpu.config import AssembleConfig
     from haslr_tpu_torch.assemble.pipeline import run_assembler
 
@@ -255,7 +368,7 @@ def phase_golden(dev, tmp):
         with gzip.open(f"{gold}/input/{name}.gz", "rb") as fi, \
                 open(paths[name], "wb") as fo:
             fo.write(fi.read())
-    out = os.path.join(tmp, "golden_asm")
+    out = os.path.join(tmp, out_name)
     t0 = time.time()
     with open(os.devnull, "w") as log:
         run_assembler(paths["contigs.fa"], paths["lr.fa"], paths["map.paf"],
@@ -270,17 +383,16 @@ def phase_golden(dev, tmp):
     return time.time() - t0
 
 
-def phase_consensus(dev, n_windows=4096, n_check=256, n_poa=512):
+def phase_consensus(dev, windows, n_check=256, n_poa=512):
     """Windows/s of the port's consensus on ``dev`` and of the native POA
     on one core; the card's output equals the CPU plain path's on
-    ``n_check`` windows."""
+    ``n_check`` windows.  Returns (record, the card's consensus)."""
     import torch
 
     from haslr_tpu import native
     from haslr_tpu.core import seq as cseq
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
-    windows = make_windows(n_windows=n_windows)
     code_wins = [[cseq.encode(s) for s in w] for w in windows[:n_poa]]
     native.poa_consensus_native(code_wins[:2])  # build / load the library
     t0 = time.time()
@@ -302,7 +414,74 @@ def phase_consensus(dev, n_windows=4096, n_check=256, n_poa=512):
         "windows": len(windows), "windows_per_s": len(windows) / dt,
         "seconds": dt, "poa_1core_windows_per_s": poa_rate,
         "poa_windows": len(code_wins), "cpu_plain_equal_windows": n_check,
+    }, out
+
+
+def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
+    """The consensus workload under the wavefront engine: windows/s, the
+    card's output equal to the CPU plain path's on ``n_check`` windows,
+    and the count of windows whose consensus differs from the row-scan
+    engine's (a fact, not a check: the two bands differ)."""
+    import torch
+
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    with nw_engine("wavefront"):
+        batched_consensus(windows[:64], device=dev)  # first-call warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        out = batched_consensus(windows, device=dev)
+        dt = time.time() - t0
+        n_launch = launches()["wavefront_votes"]
+        sub = windows[:n_check]
+        on_dev = batched_consensus(sub, device=dev)
+        on_cpu = batched_consensus(sub, device="cpu")
+    if on_dev != on_cpu or on_dev != out[:n_check]:
+        raise AssertionError("wavefront consensus on the card != CPU plain "
+                             "path")
+    if n_launch <= 0:
+        raise AssertionError("wavefront consensus launched no B4 kernel")
+    return {
+        "windows": len(windows), "windows_per_s": len(windows) / dt,
+        "seconds": dt, "wavefront_votes_launches": n_launch,
+        "cpu_plain_equal_windows": n_check,
+        "windows_differing_from_rowscan": sum(
+            a != b for a, b in zip(out, rowscan_out)
+        ),
     }
+
+
+def phase_oracle(dev, n_reads=4096):
+    """The DP-only route (B6 + host ``traceback_batch``) equals the fused
+    wavefront mapping (B5) on every row, at two shapes of in-gate reads;
+    how many rows the row-scan mapping (B3) differs in is recorded."""
+    import numpy as np
+
+    from haslr_tpu_torch.kernels import nw
+
+    rec = {"reads": n_reads}
+    for S, W in ((512, 128), (2048, 256)):
+        rng = np.random.default_rng(S + 7)
+        batch = mutated_batch(rng, n_reads, S, pad_rows=0, gate_w=W)
+        r_lens, d_lens = batch[1], batch[3]
+        t0 = time.time()
+        with nw_engine("wavefront"):
+            m_b5 = nw.align_mapping_device(*batch, W, device=dev)
+            dirs, base = nw.banded_nw_batch(*batch, W, device=dev)
+        m_b6 = nw.traceback_batch(dirs, base, r_lens, d_lens, S)
+        del dirs
+        with nw_engine("rowscan"):
+            m_b3 = nw.align_mapping_device(*batch, W, device=dev)
+        if not np.array_equal(m_b6, m_b5):
+            raise AssertionError(f"S={S}: banded_nw_batch + traceback_batch"
+                                 " != align_mapping_device (wavefront)")
+        rec[f"S{S}_W{W}"] = {
+            "b6_traceback_rows_equal_b5": n_reads,
+            "b3_rows_differing_from_b5": int((m_b3 != m_b5).any(1).sum()),
+            "seconds": time.time() - t0,
+        }
+    return rec
 
 
 def build_dataset(data_dir, genome_len, seed=7):
@@ -357,38 +536,52 @@ def canonical_kmers(seq, k=31):
     return np.unique(np.minimum(fw, bw[::-1]))
 
 
-def phase_e2e(dev, scale, threads, tmp):
-    """The pipeline CLI end to end; returns its record (stage times,
-    contigs, NG50, recall, launches)."""
-    import numpy as np
-
-    from haslr_tpu.core import io as cio
-    from haslr_tpu_torch.aligner import map as amap
-    from haslr_tpu_torch.cli import haslr as cli
-    from haslr_tpu_torch.kernels import nw_rowscan as rs
-
+def _data_paths(scale):
     t0 = time.time()
-    g_path, sr_path, lr_path = build_dataset(
+    paths = build_dataset(
         os.path.join(tempfile.gettempdir(), "haslr_smoke_data", str(scale)),
         scale,
     )
-    sim_s = time.time() - t0
-    out = os.path.join(tmp, "e2e")
+    return paths, time.time() - t0
+
+
+def _run_cli(dev, scale, threads, out, log_path):
+    """The pipeline CLI on ``out``; returns its record (stage times,
+    contigs, NG50, recall, the launches of that run)."""
+    from haslr_tpu_torch.aligner import map as amap
+    from haslr_tpu_torch.cli import haslr as cli
+
+    (g_path, sr_path, lr_path), _ = _data_paths(scale)
     argv = ["-o", out, "-g", str(scale), "-l", lr_path, "-x", "pacbio",
             "-s", sr_path, "-t", str(threads), "--device", dev.type]
-    for name in rs.LAUNCHES:
-        rs.LAUNCHES[name] = 0
+    reset_launches()
     t0 = time.time()
-    with open(os.path.join(tmp, "e2e.log"), "w") as log, \
-            contextlib.redirect_stdout(log):
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
         rc = cli.main(argv)
     wall = time.time() - t0
-    launches = dict(rs.LAUNCHES)
+    counts = launches()
     if rc != 0:
         raise AssertionError(f"pipeline exit code {rc}")
+    return {
+        "scale_bp": scale, "threads": threads, "wall_s": wall,
+        "stages_s": dict(cli.STAGE_TIMES), "align_phases_s": dict(amap.PROF),
+        **assembly_stats(final_fasta(out), g_path), "launches": counts,
+    }
+
+
+def final_fasta(out):
     final = [f for f in os.listdir(out) if f.startswith("asm_")
              and os.path.isdir(os.path.join(out, f))][0]
-    recs = list(cio.read_fastx(os.path.join(out, final, "asm.final.fa")))
+    return os.path.join(out, final, "asm.final.fa")
+
+
+def assembly_stats(fasta, g_path):
+    """Contigs, total length, NG50 and interior 31-mer recall."""
+    import numpy as np
+
+    from haslr_tpu.core import io as cio
+
+    recs = list(cio.read_fastx(fasta))
     lens = sorted((len(r.seq) for r in recs), reverse=True)
     with open(g_path) as f:
         genome = f.read().strip()
@@ -403,13 +596,49 @@ def phase_e2e(dev, scale, threads, tmp):
         [canonical_kmers(r.seq) for r in recs] or [np.zeros(0, np.uint64)]
     ))
     recall = len(np.intersect1d(gk, ak, assume_unique=True)) / len(gk)
-    return {
-        "scale_bp": scale, "threads": threads, "sim_s": sim_s,
-        "wall_s": wall, "stages_s": dict(cli.STAGE_TIMES),
-        "align_phases_s": dict(amap.PROF),
-        "n_contigs": len(recs), "total_bp": int(sum(lens)), "ng50": ng50,
-        "kmer31_recall": recall, "launches": launches,
-    }
+    return {"n_contigs": len(recs), "total_bp": int(sum(lens)),
+            "ng50": ng50, "kmer31_recall": recall}
+
+
+def phase_e2e(dev, scale, threads, tmp):
+    """The pipeline CLI end to end on the simulated data (made, or read
+    from the cache, first)."""
+    _paths, sim_s = _data_paths(scale)
+    rec = _run_cli(dev, scale, threads, os.path.join(tmp, "e2e"),
+                   os.path.join(tmp, "e2e.log"))
+    return {"sim_s": sim_s, **rec}
+
+
+def phase_e2e_wavefront(dev, scale, threads, tmp):
+    """The pipeline under the wavefront engine, resumed from phase 6's
+    output without its PAF and assembly: the skip-if-exists resume runs
+    only the aligner (B5) and the assembler (B4) again."""
+    src = os.path.join(tmp, "e2e")
+    out = os.path.join(tmp, "e2e_wf")
+
+    def drop(d, names):
+        return [n for n in names if d == src
+                and (n.endswith(".paf") or n.startswith("asm_"))]
+
+    shutil.copytree(src, out, ignore=drop, copy_function=os.link)
+    with nw_engine("wavefront"):
+        rec = _run_cli(dev, scale, threads, out,
+                       os.path.join(tmp, "e2e_wf.log"))
+    with open(final_fasta(src), "rb") as f, \
+            open(final_fasta(out), "rb") as g:
+        rec["asm_final_fa_identical_to_rowscan"] = f.read() == g.read()
+    return rec
+
+
+def _check_e2e(rec, names, what):
+    if rec["n_contigs"] != 1 or rec["kmer31_recall"] < 0.999:
+        raise AssertionError(
+            f"{what}: {rec['n_contigs']} contigs, recall "
+            f"{rec['kmer31_recall']:.5f} (want 1 contig, >= 0.999)"
+        )
+    for name in names:
+        if rec["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} not launched in {what}")
 
 
 def main():
@@ -431,24 +660,39 @@ def main():
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     _line("2 build", seconds=build_s, ptxas=ptxas)
 
-    errs = {"rowscan_votes": 0, "rowscan_cigar": 0}
+    errs = dict.fromkeys(KERNELS, 0)
+
+    def check(name, err):
+        errs[name] = max(errs[name], err)
+
     t0 = time.time()
     for S, W in ((512, 128), (1024, 128), (2048, 256), (4096, 512)):
-        errs["rowscan_votes"] = max(errs["rowscan_votes"],
-                                    check_votes(dev, S, W, 64, S))
+        check("rowscan_votes", check_votes(dev, S, W, 64, S))
+        check("rowscan_mapping",
+              check_plain(dev, "rowscan_mapping", S, W, 64, S + 3))
     for S, W, B in ((256, 128, 64), (1024, 128, 64), (2048, 256, 32),
                     (8192, 512, 16)):
-        errs["rowscan_cigar"] = max(errs["rowscan_cigar"],
-                                    check_cigar(dev, S, W, B, S + 1))
-    errs["rowscan_cigar"] = max(
-        errs["rowscan_cigar"],
-        check_cigar(dev, 256, 128, 32, 23, maxr=64, overflow=True),
-    )
+        check("rowscan_cigar", check_cigar(dev, S, W, B, S + 1))
+    check("rowscan_cigar",
+          check_cigar(dev, 256, 128, 32, 23, maxr=64, overflow=True))
+    for S, W, B in ((512, 128, 64), (1024, 128, 64), (2048, 256, 32),
+                    (8192, 512, 16)):
+        check("wavefront_votes",
+              check_votes(dev, S, W, B, S + 4, "wavefront"))
+        check("wavefront_mapping",
+              check_plain(dev, "wavefront_mapping", S, W, B, S + 5))
+    for S in (256, 1024):
+        check("wavefront_dirs",
+              check_plain(dev, "wavefront_dirs", S, 128, 64, S + 6))
     times = {S: time_pair(dev, S, 128, 2048, S + 2) for S in (512, 1024)}
     _line("3 kernel == plain", tolerance=TOL,
           votes_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
           cigar_shapes="S,W = 256,128 1024,128 2048,256 8192,512 "
                        "+ MAXR overflow",
+          rowscan_mapping_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
+          wavefront_votes_mapping_shapes="S,W = 512,128 1024,128 2048,256 "
+                                         "8192,512",
+          wavefront_dirs_shapes="S,W = 256,128 1024,128",
           max_abs_err=errs, seconds=time.time() - t0,
           ms_kernel_plain_B2048={
               f"S{S}_W128": {k: {"kernel_ms": v[0], "plain_ms": v[1]}
@@ -456,35 +700,57 @@ def main():
               for S, t in times.items()
           })
 
+    path_launches = {}
     with tempfile.TemporaryDirectory(prefix="haslr_smoke_") as tmp:
         golden_s = phase_golden(dev, tmp)
         _line("4 golden", identical=["tpu.asm.final.fa", "tpu.asm.final.ann"],
               seconds=golden_s)
 
-        _line("5 consensus", device=kind, **phase_consensus(dev))
+        windows = make_windows(n_windows=4096)
+        cons, rowscan_out = phase_consensus(dev, windows)
+        _line("5 consensus", device=kind, **cons)
 
-        rec = phase_e2e(dev, E2E_SCALE, os.cpu_count() or 1, tmp)
+        threads = os.cpu_count() or 1
+        rec = phase_e2e(dev, E2E_SCALE, threads, tmp)
         _line("6 end to end", device=kind, **rec)
-    if rec["n_contigs"] != 1 or rec["kmer31_recall"] < 0.999:
-        raise AssertionError(
-            f"end to end: {rec['n_contigs']} contigs, recall "
-            f"{rec['kmer31_recall']:.5f} (want 1 contig, >= 0.999)"
-        )
-    for name, n in rec["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} not launched end to end")
+        _check_e2e(rec, ("rowscan_votes", "rowscan_cigar"), "end to end")
+        path_launches["e2e"] = rec["launches"]
 
-    src = "haslr_tpu_torch/csrc/rowscan.cu"
-    replaces = {
-        "rowscan_votes": "haslr_tpu/kernels/nw_rowscan.py:469",
-        "rowscan_cigar": "haslr_tpu/kernels/nw_rowscan.py:692",
-    }
+        reset_launches()
+        oracle = phase_oracle(dev)
+        path_launches["oracle"] = launches()
+        _line("7 oracle", device=kind, **oracle,
+              launches=path_launches["oracle"])
+        for name in ("rowscan_mapping", "wavefront_mapping",
+                     "wavefront_dirs"):
+            if path_launches["oracle"][name] <= 0:
+                raise AssertionError(f"kernel {name} not launched in the "
+                                     "oracle phase")
+
+        with nw_engine("wavefront"):
+            reset_launches()
+            golden_s = phase_golden(dev, tmp, "golden_asm_wf")
+            n_b4 = launches()["wavefront_votes"]
+        if n_b4 <= 0:
+            raise AssertionError("wavefront golden run launched no B4")
+        _line("8 golden, wavefront",
+              identical=["tpu.asm.final.fa", "tpu.asm.final.ann"],
+              seconds=golden_s, wavefront_votes_launches=n_b4)
+
+        _line("9 consensus, wavefront", device=kind,
+              **phase_consensus_wavefront(dev, windows, rowscan_out))
+
+        rec_wf = phase_e2e_wavefront(dev, E2E_SCALE, threads, tmp)
+        _line("10 end to end, wavefront", device=kind, **rec_wf)
+        _check_e2e(rec_wf, ("wavefront_votes", "wavefront_mapping"),
+                   "end to end under the wavefront engine")
+        path_launches["e2e_wf"] = rec_wf["launches"]
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": rec["launches"][name],
-         "max_abs_err": errs[name], "ms": times[512][name][0],
-         "plain_ms": times[512][name][1]}
-        for name in ("rowscan_votes", "rowscan_cigar")
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": path_launches[path][name], "max_abs_err": errs[name],
+         "ms": times[512][name][0], "plain_ms": times[512][name][1]}
+        for name, (src, replaces, path) in KERNELS.items()
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ aligner's index, seeding, chaining and emit, the C++ in ``native/``) is
 imported from :mod:`haslr_tpu` and shared, not copied.
 
 - ``device``            torch device selection (no global device state).
-- ``kernels/``          the row-scan DP kernels (CUDA + plain PyTorch) and
-                        the dense window-consensus engine.
+- ``kernels/``          the banded NW kernels, row-scan and wavefront
+                        (CUDA + plain PyTorch), the engine switch
+                        ``kernels.nw.ENGINE`` and the dense
+                        window-consensus engine.
 - ``aligner/``          long-read mapping with the device extension.
 - ``assemble/``         consensus-engine selection and ``run_assembler``.
 - ``cli/haslr``         the five-stage pipeline driver (``--device``).

@@ -1,15 +1,24 @@
-"""Base-level extension on a torch device (port of the runs branch of
+"""Base-level extension on a torch device (port of
 :func:`haslr_tpu.aligner.extend.batch_align_segments`).
 
 Gap segments between chain anchors are length-bucketed exactly as in the
-reference (S a power of two >= 128, W = 128 / 256 / 512), aligned on the
-device by the row-scan CIGAR-run traceback
-(:func:`haslr_tpu_torch.kernels.nw_rowscan.cigar_runs_device_raw`), and
-decoded on host by the shared native decoder.  The host fallbacks are the
-reference's: :func:`haslr_tpu.aligner.extend.nw_cigar` for short, empty,
+reference (S a power of two >= 128, W = 128 / 256 / 512) and aligned on
+the device by the active engine (:data:`haslr_tpu_torch.kernels.nw.
+ENGINE`), as in the reference:
+
+- ``"rowscan"`` (default): the row-scan CIGAR-run traceback
+  (:func:`haslr_tpu_torch.kernels.nw_rowscan.cigar_runs_device_raw`),
+  decoded on host by the shared native run decoder;
+- ``"wavefront"``: the mapping branch — the (B, S) read->draft mapping
+  (:func:`haslr_tpu_torch.kernels.nw.align_mapping_device_raw`), narrowed
+  to int16 on the device before the copy and decoded on host by
+  ``native.mapping_cigars_native`` (or ``mapping_to_cigar`` without the
+  library).
+
+The host fallbacks are the reference's:
+:func:`haslr_tpu.aligner.extend.nw_cigar` for short, empty,
 band-incompatible (``|lq - lt| >= W/2 - 4``) or S > 16384 segments and
-for rows whose run list overflowed MAXR.  The reference's mapping branch
-(dense read->draft mapping shipped to the host) is not ported.
+for rows whose run list overflowed MAXR.
 """
 
 from __future__ import annotations
@@ -20,7 +29,12 @@ import numpy as np
 import torch
 
 from haslr_tpu import native
-from haslr_tpu.aligner.extend import _decode_runs_py, nw_cigar
+from haslr_tpu.aligner.extend import (
+    _decode_runs_py,
+    mapping_to_cigar,
+    nw_cigar,
+)
+from haslr_tpu_torch.kernels import nw
 from haslr_tpu_torch.kernels import nw_rowscan as rsk
 from haslr_tpu_torch.kernels.consensus_dense import _band_width
 
@@ -55,6 +69,7 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
         buckets.setdefault(S, []).append(i)
     _prof("host_small", time.time() - t0)
 
+    use_runs = nw._resolve_engine(None) == "rowscan"
     # queue every chunk's kernel before collecting any: the copies back
     # and the host decode of one chunk overlap later chunks' kernels
     in_flight = []
@@ -79,14 +94,26 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
                 d_lens[k] = len(t)
             _prof("pack", time.time() - t0)
             t0 = time.time()
-            dev = rsk.cigar_runs_device_raw(
-                reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
-                device=device,
-            )
+            if use_runs:
+                dev = rsk.cigar_runs_device_raw(
+                    reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
+                    device=device,
+                )
+            else:
+                # int16 on the device (S <= 16384), as the native decoder
+                # takes it: half the copy of int32
+                dev = nw.align_mapping_device_raw(
+                    reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
+                    device=device,
+                )
             in_flight.append((chunk, dev, reads, drafts, r_lens, d_lens))
             _prof("dispatch", time.time() - t0)
-    for chunk, (runs_dev, nruns_dev), reads, drafts, r_lens, d_lens \
-            in in_flight:
+    for chunk, dev, reads, drafts, r_lens, d_lens in in_flight:
+        if not use_runs:
+            _collect_mapping(chunk, dev, reads, drafts, r_lens, d_lens,
+                             segments, results, _prof)
+            continue
+        runs_dev, nruns_dev = dev
         t0 = time.time()
         runs = runs_dev.cpu().numpy().astype(np.uint16)
         nruns = nruns_dev.cpu().numpy()
@@ -108,3 +135,20 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
                 results[i] = (o, l, ne)
         _prof("convert", time.time() - t0)
     return results
+
+
+def _collect_mapping(chunk, mapping_dev, reads, drafts, r_lens, d_lens,
+                     segments, results, prof):
+    """Copy one chunk's int16 mapping back and decode its CIGARs."""
+    t0 = time.time()
+    mapping = mapping_dev.cpu().numpy()
+    prof("collect_d2h", time.time() - t0)
+    t0 = time.time()
+    rows = native.mapping_cigars_native(mapping, reads, drafts, r_lens,
+                                        d_lens)
+    if rows is None:
+        rows = [mapping_to_cigar(mapping[k], *segments[i])
+                for k, i in enumerate(chunk)]
+    for k, i in enumerate(chunk):
+        results[i] = rows[k]
+    prof("convert", time.time() - t0)

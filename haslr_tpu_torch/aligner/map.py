@@ -6,6 +6,11 @@ seeding and chaining (sharded over ``threads`` worker processes), CIGAR
 assembly and the native PAF writer.  Only the extension runs here, on
 the torch device (:func:`haslr_tpu_torch.aligner.extend.
 batch_align_segments`).
+
+The shared writer's count is not trusted: the native writer ignores the
+results of ``fwrite`` and ``fclose``, so a short write still reports
+every record.  :func:`map_reads` counts the records in the file and
+raises when the two differ.
 """
 
 from __future__ import annotations
@@ -74,5 +79,18 @@ def map_reads(
     PROF.update({f"extend.{k2}": v for k2, v in extend.PROF.items()})
     t0 = time.time()
     n = _emit_all(pending, seg_results, contig_names, contig_codes, out_paf)
+    n_file = count_records(out_paf)
+    if n_file != n:
+        raise OSError(f"{out_paf}: the PAF writer reported {n} records but "
+                      f"the file holds {n_file} (a short or failed write)")
     PROF["emit"] = time.time() - t0
+    return n
+
+
+def count_records(path: str) -> int:
+    """Newline-terminated records in a text file, read in 1 MiB chunks."""
+    n = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 20):
+            n += chunk.count(b"\n")
     return n

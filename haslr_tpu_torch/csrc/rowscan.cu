@@ -1,14 +1,18 @@
-// Row-scan banded Needleman-Wunsch for NVIDIA Hopper (sm_90a), with two
+// Row-scan banded Needleman-Wunsch for NVIDIA Hopper (sm_90a), with three
 // traceback emitters on one DP core:
 //
-//   hx_rowscan_votes  replaces haslr_tpu/kernels/nw_rowscan.py
-//                     _votes_kernel (pallas_call in rowscan_votes_pallas):
-//                     draft-indexed per-read vote planes + the aligned
-//                     span, for the window-consensus rounds;
-//   hx_rowscan_cigar  replaces haslr_tpu/kernels/nw_rowscan.py
-//                     _cigar_kernel (pallas_call in rowscan_cigar_pallas):
-//                     CIGAR runs in traceback order, for the aligner's
-//                     extension stage.
+//   hx_rowscan_votes    replaces haslr_tpu/kernels/nw_rowscan.py
+//                       _votes_kernel (pallas_call in rowscan_votes_pallas):
+//                       draft-indexed per-read vote planes + the aligned
+//                       span, for the window-consensus rounds;
+//   hx_rowscan_cigar    replaces haslr_tpu/kernels/nw_rowscan.py
+//                       _cigar_kernel (pallas_call in rowscan_cigar_pallas):
+//                       CIGAR runs in traceback order, for the aligner's
+//                       extension stage;
+//   hx_rowscan_mapping  replaces haslr_tpu/kernels/nw_rowscan.py:422
+//                       _mapping_kernel (pallas_call :926 in
+//                       rowscan_mapping_pallas :914): the (B, R)
+//                       read->draft mapping, for nw.align_mapping_device.
 //
 // What is computed is exactly what the XLA reference _rowscan_dirs_inner
 // and the Pallas traceback emitters compute, cell for cell:
@@ -255,6 +259,32 @@ __global__ void __launch_bounds__(kMaxW)
   n_runs[b] = n;
 }
 
+// mapping (B, R) int32, filled with -1 by the caller: jp - 1 for a read
+// base aligned to draft column jp - 1 (DIAG), -(jp + 2) for a base
+// inserted after column jp - 1 (UP).
+__global__ void __launch_bounds__(kMaxW)
+    mapping_kernel(Problem p, int32_t* mapping) {
+  const int b = blockIdx.x;
+  const int R = p.R;
+  const int W = p.W;
+  const int rl = p.r_lens[b];
+  const int dl = p.d_lens[b];
+  uint8_t* dirs = p.dirs + (size_t)b * (R + 1) * W;
+  dp_rows(p, b, rl < 0 ? 0 : (rl < R ? rl : R), dl, dirs);
+  if (threadIdx.x != 0) return;
+
+  int32_t* out = mapping + (size_t)b * R;
+  int j = dl;
+  if (rl <= R) {
+    for (int r = rl; r >= 1; --r) {
+      int jp;
+      const int d = tb_resolve(dirs, p.base, W, r, j, &jp);
+      out[r - 1] = (d == kDiag) ? jp - 1 : -(jp + 2);
+      j = (d == kDiag) ? jp - 1 : jp;
+    }
+  }
+}
+
 bool width_ok(int W) { return W >= 32 && W <= kMaxW && W % 32 == 0; }
 
 Problem make_problem(const void* reads, const void* r_lens,
@@ -308,6 +338,20 @@ int hx_rowscan_cigar(const void* reads, const void* r_lens,
       make_problem(reads, r_lens, drafts, d_lens, base, dirs, R, D, W,
                    match, mismatch, gap),
       maxr, static_cast<int32_t*>(runs), static_cast<int32_t*>(n_runs));
+  return (int)cudaGetLastError();
+}
+
+int hx_rowscan_mapping(const void* reads, const void* r_lens,
+                       const void* drafts, const void* d_lens,
+                       const void* base, void* dirs, void* mapping, int B,
+                       int R, int D, int W, int match, int mismatch, int gap,
+                       void* stream) {
+  if (!width_ok(W)) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  mapping_kernel<<<B, W, 0, static_cast<cudaStream_t>(stream)>>>(
+      make_problem(reads, r_lens, drafts, d_lens, base, dirs, R, D, W,
+                   match, mismatch, gap),
+      static_cast<int32_t*>(mapping));
   return (int)cudaGetLastError();
 }
 

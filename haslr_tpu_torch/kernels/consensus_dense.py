@@ -6,10 +6,12 @@ SPOA loop, ``Assemble.cpp:479-605``).  Per length bucket the windows'
 supporting reads and median drafts are packed 2 bits per base, sent to
 the device once, and polished there for ``rounds`` rounds; each round:
 
-1. every read is aligned to its window's current draft by the row-scan
-   vote-plane traceback (:func:`haslr_tpu_torch.kernels.nw_rowscan.
-   rowscan_votes`: the CUDA kernel on the card, its plain version on the
-   CPU);
+1. every read is aligned to its window's current draft by the active
+   engine's vote-plane traceback (:data:`haslr_tpu_torch.kernels.nw.
+   ENGINE`): the row-scan :func:`~haslr_tpu_torch.kernels.nw_rowscan.
+   rowscan_votes` by default, the wavefront :func:`~haslr_tpu_torch.
+   kernels.nw_wavefront.wavefront_votes` under ``"wavefront"`` (the CUDA
+   kernel on the card, its plain version on the CPU);
 2. the per-read planes reduce to per-window vote tables with int32
    ``index_add_`` (exact; the TPU engine used an int8 matmul only because
    its scatters run per element);
@@ -31,7 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from haslr_tpu_torch.kernels import nw
 from haslr_tpu_torch.kernels.nw_rowscan import rowscan_votes
+from haslr_tpu_torch.kernels.nw_wavefront import wavefront_votes
 
 BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
@@ -197,6 +201,8 @@ def _rounds(flat, read_off, r_lens, win_idx, draft_off, d_lens0, N, S, W,
     Returns (packed (N, S/4) uint8 final drafts, tail (3, N) int32 rows
     d_lens / overflow / dropped)."""
     dev = flat.device
+    votes = rowscan_votes if nw._resolve_engine(None) == "rowscan" \
+        else wavefront_votes
     reads = _unpack_rows(flat, read_off, r_lens, S)
     drafts = _unpack_rows(flat, draft_off, d_lens0, S)
     d_lens = d_lens0
@@ -212,8 +218,8 @@ def _rounds(flat, read_off, r_lens, win_idx, draft_off, d_lens0, N, S, W,
         drop_r.index_add_(0, torch.where(both & ~ok, win, N),
                           torch.ones_like(win))
         dropped = torch.maximum(dropped, drop_r[:N])
-        planes, stats = rowscan_votes(reads, r_lens, dr_r, dl_r, W, match,
-                                      mismatch, gap)
+        planes, stats = votes(reads, r_lens, dr_r, dl_r, W, match,
+                              mismatch, gap)
         tables = _vote_tables(planes, stats, win, ok, N, S)
         drafts, d_lens, total_keep = _vote_compact(
             *tables, drafts, d_lens, N, S

@@ -11,7 +11,9 @@ of three products:
   CUDA kernel ``hx_rowscan_votes`` in ``csrc/rowscan.cu``;
 - CIGAR runs (:func:`rowscan_cigar`, the aligner's extension) — CUDA
   kernel ``hx_rowscan_cigar``;
-- the read->draft mapping (:func:`rowscan_mapping_plain`, tests only).
+- the read->draft mapping (:func:`rowscan_mapping`,
+  :func:`haslr_tpu_torch.kernels.nw.align_mapping_device` under the
+  default engine) — CUDA kernel ``hx_rowscan_mapping``.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for CUDA tensors (or raises); there is no fallback between the
@@ -34,7 +36,7 @@ DIRS_BUDGET = {"cuda": 4 << 30, "cpu": 256 << 20}
 
 # kernel launches by wrapper (plain-version calls do not count); reset
 # and read by callers that must show the main path went through a kernel
-LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0}
+LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0, "rowscan_mapping": 0}
 
 
 def row_bases(R: int, D: int, W: int) -> np.ndarray:
@@ -289,24 +291,26 @@ def _check_cuda_args(reads, r_lens, drafts, d_lens, W):
                 f"{t.device}"
             )
     if not (32 <= W <= 512 and W % 32 == 0):
-        raise ValueError(f"CUDA row-scan kernels take W in 32..512, "
+        raise ValueError(f"the CUDA NW kernels take W in 32..512, "
                          f"a multiple of 32 (got {W})")
 
 
-def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
-    """Launch kernel ``name`` over the batch in chunks whose direction
-    scratch fits :data:`DIRS_BUDGET`; ``outs`` are (tensor, bytes per
-    read) output pairs, ``extra`` trailing int arguments."""
+def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
+                   per_read, outs, extra):
+    """Launch kernel ``hx_{name}`` over the batch in chunks whose
+    direction scratch (``per_read`` bytes a read) fits
+    :data:`DIRS_BUDGET`, counting each launch in ``launches[name]``;
+    ``base`` is the band's lane-0 column table on the device, ``outs``
+    (tensor, bytes per read) output pairs, ``extra`` trailing int
+    arguments."""
     from haslr_tpu_torch.kernels import _build
 
     B, R = reads.shape
     D = drafts.shape[1]
-    per_read = (R + 1) * W
     chunk = max(1, min(B, DIRS_BUDGET["cuda"] // per_read))
     dirs = torch.empty(chunk * per_read, dtype=torch.uint8,
                        device=reads.device)
-    base = _base_tensor(R, D, W, reads.device)
-    fn = getattr(_build.lib(), f"hx_{name}")
+    fn = _build.lib()[f"hx_{name}"]
     stream = torch.cuda.current_stream(reads.device).cuda_stream
     for lo in range(0, B, chunk):
         n = min(chunk, B - lo)
@@ -320,14 +324,20 @@ def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")
-        LAUNCHES[name] += 1
+        launches[name] += 1
 
 
-def _on_cpu(reads, r_lens, drafts, d_lens, W) -> bool:
-    """Shared wrapper front: the band check, then True for CPU tensors
-    (take the plain version); CUDA tensors are validated for the kernel,
-    any other device raises."""
-    _check_shape(reads.shape[1], drafts.shape[1], W)
+def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
+    R = reads.shape[1]
+    launch_chunked(name, LAUNCHES, reads, r_lens, drafts, d_lens, W,
+                   _base_tensor(R, drafts.shape[1], W, reads.device),
+                   (R + 1) * W, outs, extra)
+
+
+def takes_plain(reads, r_lens, drafts, d_lens, W) -> bool:
+    """Shared wrapper front: True for CPU tensors (take the plain
+    version); CUDA tensors are validated for the kernel, any other device
+    raises."""
     if reads.device.type == "cpu":
         return True
     if reads.device.type != "cuda":
@@ -336,9 +346,18 @@ def _on_cpu(reads, r_lens, drafts, d_lens, W) -> bool:
     return False
 
 
-def _chunked_plain(reads, r_lens, drafts, d_lens, W, plain, plain_args):
-    B, R = reads.shape
-    chunk = max(1, DIRS_BUDGET["cpu"] // ((R + 1) * W))
+def _on_cpu(reads, r_lens, drafts, d_lens, W) -> bool:
+    _check_shape(reads.shape[1], drafts.shape[1], W)
+    return takes_plain(reads, r_lens, drafts, d_lens, W)
+
+
+def chunked_plain(reads, r_lens, drafts, d_lens, W, plain, plain_args,
+                  per_read):
+    """``plain`` over the batch in chunks whose directions
+    (``per_read`` bytes a read) fit :data:`DIRS_BUDGET`; its output
+    tuples concatenated along the batch."""
+    B = reads.shape[0]
+    chunk = max(1, DIRS_BUDGET["cpu"] // per_read)
     parts = [
         plain(reads[lo : lo + chunk], r_lens[lo : lo + chunk],
               drafts[lo : lo + chunk], d_lens[lo : lo + chunk], W,
@@ -355,8 +374,9 @@ def rowscan_votes(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
     CPU tensors: :func:`rowscan_votes_plain`.  CUDA tensors (uint8 codes,
     int32 lengths, contiguous): the ``hx_rowscan_votes`` kernel."""
     if _on_cpu(reads, r_lens, drafts, d_lens, W):
-        return _chunked_plain(reads, r_lens, drafts, d_lens, W,
-                              rowscan_votes_plain, (match, mismatch, gap))
+        return chunked_plain(reads, r_lens, drafts, d_lens, W,
+                             rowscan_votes_plain, (match, mismatch, gap),
+                             (reads.shape[1] + 1) * W)
     B = reads.shape[0]
     D = drafts.shape[1]
     planes = torch.full((B, 3 * D + 256), 4, dtype=torch.uint8,
@@ -375,9 +395,10 @@ def rowscan_cigar(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
     CPU tensors: :func:`rowscan_cigar_plain`.  CUDA tensors: the
     ``hx_rowscan_cigar`` kernel."""
     if _on_cpu(reads, r_lens, drafts, d_lens, W):
-        return _chunked_plain(reads, r_lens, drafts, d_lens, W,
-                              rowscan_cigar_plain,
-                              (match, mismatch, gap, maxr))
+        return chunked_plain(reads, r_lens, drafts, d_lens, W,
+                             rowscan_cigar_plain,
+                             (match, mismatch, gap, maxr),
+                             (reads.shape[1] + 1) * W)
     B = reads.shape[0]
     runs = torch.zeros((B, maxr), dtype=torch.int32, device=reads.device)
     n_runs = torch.empty(B, dtype=torch.int32, device=reads.device)
@@ -385,6 +406,26 @@ def rowscan_cigar(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
             ((runs, 4 * maxr), (n_runs, 4)),
             (match, mismatch, gap, maxr))
     return runs, n_runs
+
+
+def rowscan_mapping(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
+    """Row-scan DP + mapping traceback: (B, R) int32 read->draft mapping
+    (encoding of :func:`rowscan_mapping_plain`).
+
+    CPU tensors: :func:`rowscan_mapping_plain`.  CUDA tensors: the
+    ``hx_rowscan_mapping`` kernel."""
+    if _on_cpu(reads, r_lens, drafts, d_lens, W):
+        (mapping,) = chunked_plain(
+            reads, r_lens, drafts, d_lens, W,
+            lambda *a: (rowscan_mapping_plain(*a).to(torch.int32),),
+            (match, mismatch, gap), (reads.shape[1] + 1) * W,
+        )
+        return mapping
+    B, R = reads.shape
+    mapping = torch.full((B, R), -1, dtype=torch.int32, device=reads.device)
+    _launch("rowscan_mapping", reads, r_lens, drafts, d_lens, W,
+            ((mapping, 4 * R),), (match, mismatch, gap))
+    return mapping
 
 
 def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
@@ -395,11 +436,15 @@ def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
     R = reads.shape[1]
     if maxr is None:
         maxr = max(128, R // 4)
+    return rowscan_cigar(*put_batch(device, reads, r_lens, drafts, d_lens),
+                         W, match, mismatch, gap, maxr)
 
+
+def put_batch(device, reads, r_lens, drafts, d_lens):
+    """A host (numpy) batch as the wrappers take it on ``device``:
+    contiguous uint8 codes and int32 lengths."""
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    return rowscan_cigar(
-        put(reads, np.uint8), put(r_lens, np.int32), put(drafts, np.uint8),
-        put(d_lens, np.int32), W, match, mismatch, gap, maxr,
-    )
+    return (put(reads, np.uint8), put(r_lens, np.int32),
+            put(drafts, np.uint8), put(d_lens, np.int32))

@@ -1,6 +1,8 @@
 """The port's device extension and read mapper against the JAX package:
-per-segment CIGARs across the W = 128 / 256 / 512 buckets, the host
-fallbacks and the MAXR overflow fallback, and byte-identical PAF."""
+per-segment CIGARs across the W = 128 / 256 / 512 buckets, under the
+row-scan engine (CIGAR runs) and the wavefront engine (the mapping
+branch), the host fallbacks and the MAXR overflow fallback,
+byte-identical PAF, and the check of the records written."""
 
 import numpy as np
 import pytest
@@ -10,8 +12,10 @@ from haslr_tpu.aligner import extend as ext
 from haslr_tpu.aligner import map as amap
 from haslr_tpu.core import io as cio
 from haslr_tpu.core import seq as cseq
+from haslr_tpu.kernels import nw
 from haslr_tpu_torch.aligner import extend as pext
 from haslr_tpu_torch.aligner import map as pmap
+from haslr_tpu_torch.kernels import nw as pnw
 
 
 @pytest.fixture(autouse=True)
@@ -73,6 +77,23 @@ def test_batch_align_segments_matches_reference():
         assert rn == gn, i
 
 
+def test_batch_align_segments_matches_reference_wavefront(monkeypatch):
+    """The mapping branch: under the wavefront engine both packages align
+    through the (B, S) mapping (B5's plain version here) and decode it on
+    host; segment for segment the same (ops, lens, n_eq)."""
+    monkeypatch.setattr(nw, "ENGINE", "wavefront")
+    monkeypatch.setattr(pnw, "ENGINE", "wavefront")
+    segs = _segments()
+    ref = ext.batch_align_segments(segs)
+    got = pext.batch_align_segments(segs, device="cpu")
+    assert "n_runs_overflow" not in pext.PROF
+    assert pext.PROF["collect_d2h"] >= 0
+    for i, ((ro, rl, rn), (go, gl, gn)) in enumerate(zip(ref, got)):
+        np.testing.assert_array_equal(ro, go, f"ops {i}")
+        np.testing.assert_array_equal(rl, gl, f"lens {i}")
+        assert rn == gn, i
+
+
 def _rand_seq(rng, n):
     return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
 
@@ -107,3 +128,34 @@ def test_map_reads_paf_identical(tmp_path, read_type, err, threads):
         assert f.read() == g.read()
     if err:
         assert pmap.PROF["n_segments"] > 0
+
+
+def test_map_reads_raises_on_short_paf(tmp_path, monkeypatch):
+    """A PAF writer that reports more records than reached the file (the
+    native writer ignores fwrite/fclose errors) makes the port's
+    ``map_reads`` raise, naming the file and both counts."""
+    rng = np.random.default_rng(8)
+    genome = _rand_seq(rng, 4000)
+    contigs = str(tmp_path / "c.fa")
+    reads = str(tmp_path / "r.fa")
+    cio.write_fasta(contigs, [("0", genome[:1900]), ("1", genome[2100:])])
+    cio.write_fasta(reads, [(str(i), genome[s : s + 1500])
+                            for i, s in enumerate((0, 600, 1300, 2400))])
+
+    def short_write(pending, seg_results, names, codes, out_paf):
+        n = amap._emit_all(pending, seg_results, names, codes, out_paf)
+        with open(out_paf, "rb") as f:
+            lines = f.read().splitlines(keepends=True)
+        with open(out_paf, "wb") as f:
+            f.writelines(lines[:-1])
+        return n
+
+    paf = str(tmp_path / "out.paf")
+    n = pmap.map_reads(contigs, reads, paf, read_type="nanopore",
+                       device="cpu")
+    assert n >= 4 and pmap.count_records(paf) == n
+    monkeypatch.setattr(pmap, "_emit_all", short_write)
+    with pytest.raises(OSError, match=f"out.paf.*reported {n} records.*"
+                                      f"holds {n - 1}"):
+        pmap.map_reads(contigs, reads, paf, read_type="nanopore",
+                       device="cpu")

@@ -1,6 +1,7 @@
 """The port's dense consensus engine and assembler against the JAX
 package: window-for-window consensus on bench-style and oversized
-windows, the pinned golden assembly, and resume from snapshots written by
+windows, under the default row-scan engine and the wavefront engine, the
+pinned golden assembly, and resume from snapshots written by
 ``haslr_tpu``.  Exact equality throughout."""
 
 import gzip
@@ -14,7 +15,9 @@ import torch
 
 from haslr_tpu.core import seq as cseq
 from haslr_tpu.kernels import consensus_dense as cd
+from haslr_tpu.kernels import nw
 from haslr_tpu_torch.kernels import consensus_dense as pcd
+from haslr_tpu_torch.kernels import nw as pnw
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden")
@@ -26,6 +29,14 @@ from make_golden import GOLDEN_ARTIFACTS  # noqa: E402
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def wavefront(monkeypatch):
+    """Both packages on the wavefront engine for one test, restored after
+    it (the module global would otherwise leak into later tests)."""
+    monkeypatch.setattr(nw, "ENGINE", "wavefront")
+    monkeypatch.setattr(pnw, "ENGINE", "wavefront")
 
 
 def _mutate(rng, s, err):
@@ -100,6 +111,50 @@ def test_dense_consensus_matches_reference_oversized(small_buckets):
         [w for w in got_warn if "split" in w]
 
 
+def _engines_agree_windows():
+    """The windows of ``test_nw_rowscan.test_consensus_engines_agree``."""
+    rng = np.random.default_rng(23)
+    bases = "ACGT"
+
+    def mutate(s, rate=0.07):
+        out = []
+        for ch in s:
+            r = rng.random()
+            if r < rate / 3:
+                continue
+            if r < 2 * rate / 3:
+                out.append(bases[rng.integers(0, 4)])
+            else:
+                out.append(ch)
+                if r < rate:
+                    out.append(bases[rng.integers(0, 4)])
+        return "".join(out)
+
+    windows = []
+    for L in (60, 200, 500, 900):
+        true = "".join(bases[i] for i in rng.integers(0, 4, L))
+        windows.append([mutate(true) for _ in range(9)])
+    return windows + [[], ["ACGT"]]
+
+
+def test_dense_consensus_matches_reference_wavefront(wavefront):
+    """Under the wavefront engine (vote planes from B4's plain version):
+    the bench-style windows of the row-scan test above and the windows of
+    the reference's engine-agreement test, against the JAX package under
+    the same engine."""
+    from haslr_tpu.kernels.consensus import batched_consensus
+    from haslr_tpu_torch.kernels.consensus import (
+        batched_consensus as p_batched,
+    )
+
+    rng = np.random.default_rng(0)
+    lengths = [int(x) for x in rng.integers(200, 400, 12)]
+    wins = _windows(1, lengths + [60, 150, 1500], 13, 0.06)
+    _assert_same(cd.dense_consensus(wins), pcd.dense_consensus(wins))
+    windows = _engines_agree_windows()
+    assert batched_consensus(windows) == p_batched(windows)
+
+
 def test_pack2_and_unpack_roundtrip():
     from haslr_tpu.kernels.kmer_stream import pack2
 
@@ -156,6 +211,21 @@ def test_run_assembler_reproduces_golden(tmp_path, engine, prefix):
                   cfg=AssembleConfig(consensus_engine=engine), log=None,
                   device="cpu")
     _assert_golden(out, prefix)
+
+
+def test_run_assembler_reproduces_golden_wavefront(tmp_path, wavefront):
+    """The device engine's golden ``tpu.asm.final.{fa,ann}`` come out byte
+    for byte under the wavefront engine too (the JAX package does the
+    same)."""
+    from haslr_tpu.config import AssembleConfig
+    from haslr_tpu_torch.assemble.pipeline import run_assembler
+
+    contigs, lr, paf = _golden_inputs(tmp_path)
+    out = str(tmp_path / "asm")
+    run_assembler(contigs, lr, paf, out,
+                  cfg=AssembleConfig(consensus_engine="tpu"), log=None,
+                  device="cpu")
+    _assert_golden(out, "tpu.")
 
 
 def test_resume_from_reference_snapshots(tmp_path):

@@ -207,7 +207,8 @@ def test_row_bases_match_reference():
         assert prs.rowscan_supported(R, D, W) == rs.rowscan_supported(R, D, W)
 
 
-@pytest.mark.parametrize("entry", ["dirs", "mapping", "votes", "cigar"])
+@pytest.mark.parametrize("entry", ["dirs", "mapping", "votes", "cigar",
+                                   "mapping_wrapper"])
 def test_unsupported_band_raises(entry):
     """D > R with band steps above one column per row is refused, never
     computed wrong (the reference never checked)."""
@@ -222,6 +223,7 @@ def test_unsupported_band_raises(entry):
         "mapping": prs.rowscan_mapping_plain,
         "votes": prs.rowscan_votes,
         "cigar": lambda *a: prs.rowscan_cigar(*a, 128),
+        "mapping_wrapper": prs.rowscan_mapping,
     }[entry]
     with pytest.raises(ValueError, match="unsupported"):
         fn(*args)
@@ -232,6 +234,7 @@ def test_wrappers_count_no_launch_on_cpu():
     _ja, ta, _ = _batch(4, 8, 256, 128)
     prs.rowscan_votes(*ta, 128, 5, -4, -8)
     prs.rowscan_cigar(*ta, 128, 2, -4, -2, 128)
+    prs.rowscan_mapping(*ta, 128, 5, -4, -8)
     assert prs.LAUNCHES == before
 
 
@@ -244,6 +247,19 @@ def test_wrappers_refuse_other_devices():
         prs.rowscan_votes(*meta, 128, 5, -4, -8)
     with pytest.raises(ValueError, match="unsupported device"):
         prs.rowscan_cigar(*meta, 128, 2, -4, -2, 128)
+    with pytest.raises(ValueError, match="unsupported device"):
+        prs.rowscan_mapping(*meta, 128, 5, -4, -8)
+
+
+def test_mapping_wrapper_matches_pallas_interpret():
+    """B3's wrapper on the CPU (its plain version) against the Pallas
+    mapping kernel in interpret mode, every row, int32 like the kernel."""
+    B, S, W = 64, 256, 128
+    ja, ta, _ = _batch(29, B, S, W)
+    ref = rs.rowscan_mapping_pallas(*ja, S, S, W, 2, -4, -2, True)
+    got = prs.rowscan_mapping(*ta, W, 2, -4, -2)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
 
 
 def test_failed_build_raises_with_compiler_stderr(tmp_path, monkeypatch):

@@ -79,6 +79,8 @@ def test_port_imports_and_runs_without_jax(port_run):
     _out, info = port_run
     assert info["rc"] == 0
     assert "haslr_tpu_torch.kernels.nw_rowscan" in info["modules"]
+    assert "haslr_tpu_torch.kernels.nw_wavefront" in info["modules"]
+    assert "haslr_tpu_torch.kernels.nw" in info["modules"]
     assert "haslr_tpu_torch.cli.haslr" in info["modules"]
     assert info["jax"] is False
 
@@ -102,6 +104,35 @@ def test_port_cli_matches_reference_cli(dataset, port_run):
     with open(f"{ref_out}/{paf}", "rb") as f, \
             open(f"{port_out}/{paf}", "rb") as g:
         assert f.read() == g.read()
+
+
+def test_port_cli_matches_reference_cli_wavefront(dataset, tmp_path,
+                                                  monkeypatch, capsys):
+    """Both CLIs under the wavefront engine (the port's extension through
+    B5's and its consensus through B4's plain versions): the same
+    ``asm.final.*`` and PAF bytes."""
+    from haslr_tpu.cli.haslr import main as ref_main
+    from haslr_tpu.kernels import nw
+    from haslr_tpu_torch.cli.haslr import main
+    from haslr_tpu_torch.kernels import nw as pnw
+
+    _root, sr_path, lr_path = dataset
+    monkeypatch.setattr(nw, "ENGINE", "wavefront")
+    monkeypatch.setattr(pnw, "ENGINE", "wavefront")
+    torch.set_num_threads(1)
+    ref_out = str(tmp_path / "ref")
+    port_out = str(tmp_path / "port")
+    assert ref_main(_args(ref_out, sr_path, lr_path)
+                    + ["--platform", "cpu"]) == 0
+    assert main(_args(port_out, sr_path, lr_path) + ["--device", "cpu"]) \
+        == 0
+    capsys.readouterr()
+    asm = "asm_contigs_k49_a3_c250_lr25x_b500_s3_sim0.85"
+    for name in (f"{asm}/asm.final.fa", f"{asm}/asm.final.ann",
+                 "map_contigs_k49_a3_c250_lr25x.paf"):
+        with open(f"{ref_out}/{name}", "rb") as f, \
+                open(f"{port_out}/{name}", "rb") as g:
+            assert f.read() == g.read(), name
 
 
 def test_port_cli_resume_skips_every_stage(dataset, port_run, capsys):
