@@ -6,8 +6,14 @@ Phases, one printed line each (any failure raises):
 2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (one nvcc per
    source, in parallel, sm_90a);
 3. each of the six kernels against its plain PyTorch version on the
-   card, exact, at the shapes its callers give it, and their times (CUDA
-   events);
+   card, exact, at the shapes its callers give it; the three row-scan
+   kernels again at every route of their design (lanes a thread, warps a
+   read: W = 128, 256, and 512 at launches on either side of the small-
+   launch limit; ragged, empty, out-of-gate and pad rows, the
+   MAXR-overflow batch, and S=16384/W=512 at 32 reads) and at bands and
+   row widths off the main path (W = 32 to 480, R and D no multiples of
+   four); then each kernel's time (CUDA events) beside its plain
+   version's and its bound on this card;
 4. the golden assembly (``tests/golden``) through the CUDA consensus,
    byte for byte;
 5. the consensus workload (4096 windows x 13 reads x ~300 bp at 6 %
@@ -15,7 +21,8 @@ Phases, one printed line each (any failure raises):
    and the card's output equal to the CPU plain path's on 256 windows;
 6. the five-stage pipeline (``haslr_tpu_torch.cli.haslr``) end to end on
    a simulated 4.6 Mb genome: stage times, contigs, NG50, interior 31-mer
-   recall, and the kernel launch counts of that run;
+   recall, the kernel launch counts of that run, and the CIGAR-run
+   kernel's launches by bucket (S, W, launches, reads, device ms);
 
 then the same paths under the wavefront engine (``nw.ENGINE =
 "wavefront"``, restored after each phase):
@@ -30,6 +37,10 @@ then the same paths under the wavefront engine (``nw.ENGINE =
     assembly, so that the aligner and the assembler run again: stage
     times, contigs, NG50, recall, launches, and whether ``asm.final.fa``
     equals phase 6's.
+
+The bound of a kernel is the larger of its bytes (inputs read once,
+outputs written once) over 3.35 TB/s and its int32 operations on this
+run's inputs over 132 SMs x 64 lanes x 1.98 GHz (``kernel_bound``).
 
 Then a JSON line of kernel records, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -72,6 +83,39 @@ KERNELS = {
 }
 
 
+# the least time the card could take: HBM3 bytes/s, and int32 add / max /
+# compare issued on 64 lanes an SM (half the 33.5 T instructions/s behind
+# the published 67 TFLOP/s of float32)
+PEAK_BYTES_S = 3.35e12
+PEAK_INT32_S = 132 * 64 * 1.98e9
+# int32 operations a DP cell, as each recurrence is written.  Row-scan:
+# substitution score (compare, select), two candidate adds, their max, the
+# valid mask (compare, select), the -gap*k shift, the scan max, the +gap*k
+# shift, the direction (two compares, two selects).  Wavefront: the score
+# (2), three candidate adds, their three gates (i >= 1, j >= 1: two
+# compares, three selects), two maxes, the direction (4), the valid mask
+# (compare, select).
+OPS_PER_CELL = {"rowscan": 14, "wavefront": 18}
+
+
+def kernel_bound(name, r_lens, d_lens, R, D, W, in_bytes, out_bytes):
+    """``(bound_ms, bound_by)`` of kernel ``name`` on one batch: what
+    these inputs need, not the most the shape could.  The row-scan DP
+    fills r_len rows of W lanes a read; the wavefront mapping and votes
+    kernels r_len + d_len diagonals; the wavefront dirs kernel all R + D."""
+    engine = name.split("_")[0]
+    if engine == "rowscan":
+        rows = int(r_lens.clamp(0, R).sum())
+    elif name == "wavefront_dirs":
+        rows = len(r_lens) * (R + D)
+    else:
+        rows = int((r_lens.clamp(0, R) + d_lens.clamp(0, D)).sum())
+    ops_ms = rows * W * OPS_PER_CELL[engine] / PEAK_INT32_S * 1e3
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
 def _counters():
     from haslr_tpu_torch.kernels import nw_rowscan, nw_wavefront
 
@@ -87,6 +131,33 @@ def reset_launches():
 def launches():
     rs, wf = _counters()
     return {**rs, **wf}
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Every kernel launch of the block, with CUDA events around each:
+    yields a list that holds, once the block has ended, one record a
+    (kernel, S, W) bucket: launches, reads and device ms."""
+    import torch
+
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    out = []
+    rs.LAUNCH_LOG = []
+    try:
+        yield out
+        torch.cuda.synchronize()
+        buckets = {}
+        for name, n, R, W, ev0, ev1 in rs.LAUNCH_LOG:
+            b = buckets.setdefault((name, R, W), {
+                "kernel": name, "S": R, "W": W, "launches": 0, "reads": 0,
+                "device_ms": 0.0})
+            b["launches"] += 1
+            b["reads"] += n
+            b["device_ms"] += ev0.elapsed_time(ev1)
+        out.extend(buckets[k] for k in sorted(buckets))
+    finally:
+        rs.LAUNCH_LOG = None
 
 
 @contextlib.contextmanager
@@ -203,6 +274,37 @@ def _max_err(pairs):
     return worst
 
 
+def check_shape(dev, R, D, W, B, seed, overflow=False):
+    """B1, B2 and B3 on the card at one shape against their plain
+    versions, every row and every slot, exact; returns the (C, WPR) route
+    the wrappers took."""
+    import numpy as np
+
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+
+    rng = np.random.default_rng(seed)
+    reads, r_lens, drafts, d_lens = overflow_batch(rng, B, D) if overflow \
+        else mutated_batch(rng, B, D)
+    reads = np.pad(reads, ((0, 0), (0, R - D)), constant_values=4)
+    r_lens[2] = R + 1  # longer than its row: a full DP and no walk
+    args = _to(dev, reads, r_lens, drafts, d_lens)
+    maxr = 64 if overflow else max(128, R // 4)
+    runs_p, n_p = rs.rowscan_cigar_plain(*args, W, 2, -4, -2, maxr)
+    if overflow and not bool((n_p > maxr).any()):
+        raise AssertionError("overflow batch did not overflow MAXR")
+    planes_p, stats_p = rs.rowscan_votes_plain(*args, W, 5, -4, -8)
+    map_p = rs.rowscan_mapping_plain(*args, W, 5, -4, -8)
+    runs_k, n_k = rs.rowscan_cigar(*args, W, 2, -4, -2, maxr)
+    planes_k, stats_k = rs.rowscan_votes(*args, W, 5, -4, -8)
+    map_k = rs.rowscan_mapping(*args, W, 5, -4, -8)
+    what = f"R={R} D={D} W={W} B={B}"
+    _max_err([(f"n_runs {what}", n_k, n_p), (f"runs {what}", runs_k, runs_p),
+              (f"planes {what}", planes_k, planes_p),
+              (f"stats {what}", stats_k, stats_p),
+              (f"mapping {what}", map_k, map_p)])
+    return rs._route(W, B, rs._sm_count(dev))[:2]
+
+
 def check_votes(dev, S, W, B, seed, engine="rowscan"):
     """B1 (``engine="rowscan"``) or B4 (``"wavefront"``) on the card vs
     its plain version: planes, stats and the reduced vote tables, every
@@ -280,9 +382,12 @@ def check_plain(dev, name, S, W, B, seed):
                       plain(*args, W, *scores))])
 
 
-def time_pair(dev, S, W, B, seed):
-    """(kernel ms, plain ms) of every kernel at one shape: CUDA events
-    around warm launches, the two versions interleaved."""
+def time_pair(dev, S, W, B, seed, only=None, plain_once=False):
+    """Per kernel (all six, or those in ``only``) at one shape: kernel ms
+    and plain ms (CUDA events around warm launches, the two versions
+    interleaved; ``plain_once``: the plain version a single cold call,
+    for shapes where it takes seconds), the bound on this batch and the
+    share of it reached."""
     import numpy as np
     import torch
 
@@ -292,8 +397,9 @@ def time_pair(dev, S, W, B, seed):
     rng = np.random.default_rng(seed)
     args = _to(dev, *mutated_batch(rng, B, S, pad_rows=0))
 
-    def ms(fn, n):
-        fn()
+    def ms(fn, n, warm=True):
+        if warm:
+            fn()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -315,11 +421,26 @@ def time_pair(dev, S, W, B, seed):
          (5, -4, -8)),
         *((k, *v) for k, v in _plain_pairs().items()),
     ):
-        p1 = ms(lambda: plain(*args, W, *extra), 1)
+        if only is not None and name not in only:
+            continue
+        p1 = ms(lambda: plain(*args, W, *extra), 1, warm=not plain_once)
         k1 = ms(lambda: kern(*args, W, *extra), 5)
         k2 = ms(lambda: kern(*args, W, *extra), 5)
-        p2 = ms(lambda: plain(*args, W, *extra), 1)
-        out[name] = (min(k1, k2), min(p1, p2))
+        p2 = p1 if plain_once else ms(lambda: plain(*args, W, *extra), 1)
+        res = kern(*args, W, *extra)
+        res = res if isinstance(res, tuple) else (res,)
+        bound_ms, bound_by = kernel_bound(
+            name, args[1], args[3], S, S, W,
+            sum(a.numel() * a.element_size() for a in args),
+            sum(o.numel() * o.element_size() for o in res),
+        )
+        del res
+        out[name] = {
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / min(k1, k2),
+            "mean_r_len": float(args[1].float().mean()),
+        }
     return out
 
 
@@ -358,7 +479,7 @@ def phase_golden(dev, tmp, out_name="golden_asm"):
     """The port's run_assembler on the golden input reproduces the
     reference's pinned device-engine outputs byte for byte (under either
     NW engine)."""
-    from haslr_tpu.config import AssembleConfig
+    from haslr_tpu_torch.config import AssembleConfig
     from haslr_tpu_torch.assemble.pipeline import run_assembler
 
     gold = os.path.join(ROOT, "tests", "golden")
@@ -389,8 +510,8 @@ def phase_consensus(dev, windows, n_check=256, n_poa=512):
     ``n_check`` windows.  Returns (record, the card's consensus)."""
     import torch
 
-    from haslr_tpu import native
-    from haslr_tpu.core import seq as cseq
+    from haslr_tpu_torch import native
+    from haslr_tpu_torch.core import seq as cseq
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
     code_wins = [[cseq.encode(s) for s in w] for w in windows[:n_poa]]
@@ -402,17 +523,21 @@ def phase_consensus(dev, windows, n_check=256, n_poa=512):
     batched_consensus(windows[:64], device=dev)  # first-call warm-up
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    t0 = time.time()
-    out = batched_consensus(windows, device=dev)
-    dt = time.time() - t0
+    with launch_log() as by_bucket:
+        t0 = time.time()
+        out = batched_consensus(windows, device=dev)
+        dt = time.time() - t0
     sub = windows[:n_check]
     on_dev = batched_consensus(sub, device=dev)
     on_cpu = batched_consensus(sub, device="cpu")
     if on_dev != on_cpu or on_dev != out[:n_check]:
         raise AssertionError("consensus on the card != CPU plain path")
+    if not any(b["kernel"] == "rowscan_votes" for b in by_bucket):
+        raise AssertionError("row-scan consensus launched no B1 kernel")
     return {
         "windows": len(windows), "windows_per_s": len(windows) / dt,
-        "seconds": dt, "poa_1core_windows_per_s": poa_rate,
+        "seconds": dt, "launches_by_bucket": by_bucket,
+        "poa_1core_windows_per_s": poa_rate,
         "poa_windows": len(code_wins), "cpu_plain_equal_windows": n_check,
     }, out
 
@@ -430,9 +555,10 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
         batched_consensus(windows[:64], device=dev)  # first-call warm-up
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.time()
-        out = batched_consensus(windows, device=dev)
-        dt = time.time() - t0
+        with launch_log() as by_bucket:
+            t0 = time.time()
+            out = batched_consensus(windows, device=dev)
+            dt = time.time() - t0
         n_launch = launches()["wavefront_votes"]
         sub = windows[:n_check]
         on_dev = batched_consensus(sub, device=dev)
@@ -445,6 +571,7 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
     return {
         "windows": len(windows), "windows_per_s": len(windows) / dt,
         "seconds": dt, "wavefront_votes_launches": n_launch,
+        "launches_by_bucket": by_bucket,
         "cpu_plain_equal_windows": n_check,
         "windows_differing_from_rowscan": sum(
             a != b for a, b in zip(out, rowscan_out)
@@ -490,7 +617,7 @@ def build_dataset(data_dir, genome_len, seed=7):
     simulated once and cached in ``data_dir``."""
     import numpy as np
 
-    from haslr_tpu.testutil import simulate
+    from haslr_tpu_torch.testutil import simulate
 
     g_path = f"{data_dir}/genome.txt"
     sr_path = f"{data_dir}/sr.fq"
@@ -521,7 +648,7 @@ def canonical_kmers(seq, k=31):
     """Sorted unique canonical k-mers of an ACGT string, 2 bits a base."""
     import numpy as np
 
-    from haslr_tpu.core import seq as cseq
+    from haslr_tpu_torch.core import seq as cseq
 
     c = cseq.encode(seq).astype(np.uint64)
     n = len(c) - k + 1
@@ -556,13 +683,15 @@ def _run_cli(dev, scale, threads, out, log_path):
             "-s", sr_path, "-t", str(threads), "--device", dev.type]
     reset_launches()
     t0 = time.time()
-    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+    with launch_log() as by_bucket, open(log_path, "w") as log, \
+            contextlib.redirect_stdout(log):
         rc = cli.main(argv)
-    wall = time.time() - t0
-    counts = launches()
+        wall = time.time() - t0
+        counts = launches()
     if rc != 0:
         raise AssertionError(f"pipeline exit code {rc}")
     return {
+        "launches_by_bucket": by_bucket,
         "scale_bp": scale, "threads": threads, "wall_s": wall,
         "stages_s": dict(cli.STAGE_TIMES), "align_phases_s": dict(amap.PROF),
         **assembly_stats(final_fasta(out), g_path), "launches": counts,
@@ -579,7 +708,7 @@ def assembly_stats(fasta, g_path):
     """Contigs, total length, NG50 and interior 31-mer recall."""
     import numpy as np
 
-    from haslr_tpu.core import io as cio
+    from haslr_tpu_torch.core import io as cio
 
     recs = list(cio.read_fastx(fasta))
     lens = sorted((len(r.seq) for r in recs), reverse=True)
@@ -684,7 +813,39 @@ def main():
     for S in (256, 1024):
         check("wavefront_dirs",
               check_plain(dev, "wavefront_dirs", S, 128, 64, S + 6))
+    # every route of the row-scan design, (C, WPR) by W and by B on either
+    # side of the small-launch limit; then bands and row widths that run
+    # masked or padded
+    route_shapes = (
+        (512, 512, 128, 64), (1024, 1024, 128, 64), (2048, 2048, 256, 32),
+        (1024, 1024, 512, 24), (1024, 1024, 512, 272),
+        (4096, 4096, 512, 16), (2048, 2048, 512, 256),
+        (16384, 16384, 512, 32),
+        (512, 512, 32, 64), (512, 512, 96, 64), (1024, 1024, 160, 32),
+        (1024, 1024, 480, 16), (1024, 1024, 320, 260),
+        (510, 510, 128, 64), (510, 509, 96, 64), (301, 299, 32, 64),
+        (2047, 2045, 256, 32), (1022, 1021, 512, 16),
+    )
+    t_routes = time.time()
+    took = [[R, D, W, B, *check_shape(dev, R, D, W, B, R + 11)]
+            for R, D, W, B in route_shapes]
+    took.append([256, 256, 128, 32,
+                 *check_shape(dev, 256, 256, 128, 32, 23, overflow=True),
+                 "MAXR overflow"])
+    want = {(4, 1), (8, 1), (16, 1), (4, 4)}
+    if {(C, wpr) for _R, _D, _W, _B, C, wpr, *_ in took} != want:
+        raise AssertionError(f"phase 3a did not take every route: {took}")
+    _line("3a row-scan routes == plain", tolerance=TOL,
+          kernels=["rowscan_votes", "rowscan_cigar", "rowscan_mapping"],
+          shapes_R_D_W_B_C_WPR=took, max_abs_err=0,
+          seconds=time.time() - t_routes)
     times = {S: time_pair(dev, S, 128, 2048, S + 2) for S in (512, 1024)}
+    big = time_pair(dev, 16384, 512, 32, 16386, only=("rowscan_cigar",),
+                    plain_once=True)
+    for name in KERNELS:
+        _line("3b time and bound", kernel=name, card=smi,
+              **{f"B2048_S{S}_W128": t[name] for S, t in times.items()},
+              **({"B32_S16384_W512": big[name]} if name in big else {}))
     _line("3 kernel == plain", tolerance=TOL,
           votes_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
           cigar_shapes="S,W = 256,128 1024,128 2048,256 8192,512 "
@@ -695,7 +856,8 @@ def main():
           wavefront_dirs_shapes="S,W = 256,128 1024,128",
           max_abs_err=errs, seconds=time.time() - t0,
           ms_kernel_plain_B2048={
-              f"S{S}_W128": {k: {"kernel_ms": v[0], "plain_ms": v[1]}
+              f"S{S}_W128": {k: {"kernel_ms": v["ms"],
+                                 "plain_ms": v["plain_ms"]}
                              for k, v in t.items()}
               for S, t in times.items()
           })
@@ -746,17 +908,71 @@ def main():
                    "end to end under the wavefront engine")
         path_launches["e2e_wf"] = rec_wf["launches"]
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": path_launches[path][name], "max_abs_err": errs[name],
-         "ms": times[512][name][0], "plain_ms": times[512][name][1]}
-        for name, (src, replaces, path) in KERNELS.items()
-    ]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
-    }}))
+    return [
+        json.dumps({"kernels": [
+            {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces,
+             "launches": path_launches[path][name],
+             "max_abs_err": errs[name],
+             "ms": times[512][name]["ms"],
+             "plain_ms": times[512][name]["plain_ms"],
+             "bound_ms": times[512][name]["bound_ms"],
+             "bound_by": times[512][name]["bound_by"], "library_ms": None}
+            for name, (src, replaces, path) in KERNELS.items()
+        ]}),
+        smi,
+        json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count(),
+        }}),
+    ]
+
+
+def child_pids():
+    """The live processes whose parent is this one (zombies left out)."""
+    me, out = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except OSError:
+            continue  # gone between the listing and the read
+        if ppid == me and state != "Z":
+            out.append(int(pid))
+    return out
+
+
+def stop_children():
+    """End every process this run started and return those that had to
+    be killed.  The pipeline's seeding pool (spawn context) ends its
+    workers itself but leaves Python's multiprocessing resource tracker
+    running until the interpreter exits and a moment beyond; it is
+    stopped here, once the pool's semaphores are collected, so that
+    nothing outlives the script."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    left = child_pids()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except OSError:
+            pass
+    return left
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        last_lines = main()
+    finally:
+        killed = stop_children()
+    if killed:
+        raise SystemExit(f"chip_smoke: processes still running at the end, "
+                         f"killed: {killed}")
+    print("\n".join(last_lines))

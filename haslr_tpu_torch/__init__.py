@@ -3,12 +3,16 @@
 A second package beside :mod:`haslr_tpu` (JAX + Pallas), which stays the
 reference it is tested against.  It runs the ``haslr`` pipeline's main
 path with the device work in PyTorch and hand-written CUDA kernels for
-NVIDIA Hopper (``csrc/``); all host code that imports no framework
-(``core/``, the assembler's graph stack, the short-read stage, the
-aligner's index, seeding, chaining and emit, the C++ in ``native/``) is
-imported from :mod:`haslr_tpu` and shared, not copied.
+NVIDIA Hopper (``csrc/``).  It imports nothing of :mod:`haslr_tpu`: the
+host code that uses no framework (``config``, ``core/``, the assembler's
+graph stack, the short-read stage, the aligner's index, seeding,
+chaining and emit, the C++ in ``native/``, ``testutil/``) is its own copy
+of the reference's, held to it file by file in the tests.  Every entry
+point runs on the card unless the caller passes ``device="cpu"``.
 
 - ``device``            torch device selection (no global device state).
+- ``config``, ``core/``, ``native/``, ``sr/``, ``testutil/``
+                        the host stack (copies of the reference's).
 - ``kernels/``          the banded NW kernels, row-scan and wavefront
                         (CUDA + plain PyTorch), the engine switch
                         ``kernels.nw.ENGINE`` and the dense
@@ -23,4 +27,4 @@ kernel: the CUDA sources are compiled with ``nvcc`` at first launch.
 
 __version__ = "0.1.0"
 
-from haslr_tpu.config import AssembleConfig, PipelineConfig  # noqa: F401
+from haslr_tpu_torch.config import AssembleConfig, PipelineConfig  # noqa: F401

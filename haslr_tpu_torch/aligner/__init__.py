@@ -1,4 +1,4 @@
 """Long-read -> SR-contig aligner with the extension on a torch device.
 
-Presets, index, seeding, chaining and PAF emission are
-:mod:`haslr_tpu.aligner`'s, shared."""
+Presets, index, seeding, chaining and PAF emission are the port's own
+copy of :mod:`haslr_tpu.aligner`'s."""

@@ -1,2 +1,2 @@
 """The core assembler with the port's consensus engine; every other step
-is :mod:`haslr_tpu.assemble`'s shared host code."""
+is the port's own copy of :mod:`haslr_tpu.assemble`'s host code."""

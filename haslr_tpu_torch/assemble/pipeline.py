@@ -5,35 +5,56 @@ The same 13 steps as the reference (``main.cpp:28-228``), the same stage
 artifacts (``backbone.NN.*.gfa/.stat``, ``compact_uniq.txt``,
 ``asm.final.fa/.ann``, logs) and the same ``index.contig.npz`` /
 ``index.longread.npz`` snapshot resume — snapshots written by either
-package load in the other.  Every step but consensus is the shared host
-code of :mod:`haslr_tpu.assemble`.
+package load in the other.  Every step but consensus is the port's own
+copy of the host code of :mod:`haslr_tpu.assemble`.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import torch
 
-from haslr_tpu.assemble import backbone as bb
-from haslr_tpu.assemble import cleaning, index_io
-from haslr_tpu.assemble.compact import (
+from haslr_tpu_torch.assemble import backbone as bb
+from haslr_tpu_torch.assemble import cleaning, index_io
+from haslr_tpu_torch.assemble.compact import (
     build_compact_longreads,
     write_compact_longreads,
 )
-from haslr_tpu.assemble.contig_store import ContigStore
-from haslr_tpu.assemble.coords import calc_edge_coordinates
-from haslr_tpu.assemble.longread_store import (
+from haslr_tpu_torch.assemble.consensus import calc_consensus
+from haslr_tpu_torch.assemble.contig_store import ContigStore
+from haslr_tpu_torch.assemble.coords import calc_edge_coordinates
+from haslr_tpu_torch.assemble.longread_store import (
     LongreadStore,
     fix_alignments,
     load_alignments,
 )
-from haslr_tpu.assemble.pipeline import StageTimer
-from haslr_tpu.assemble.stitch import get_assembly
-from haslr_tpu.config import AssembleConfig
-from haslr_tpu.core.io import read_fofn
-from haslr_tpu_torch.assemble.consensus import calc_consensus
+from haslr_tpu_torch.assemble.stitch import get_assembly
+from haslr_tpu_torch.config import AssembleConfig
+from haslr_tpu_torch.core.io import read_fofn
+from haslr_tpu_torch.device import resolve_device
+
+
+class StageTimer:
+    """Per-stage wall/CPU timing (reference get_cpu_time/get_real_time,
+    Common.cpp:152-165, printed after every stage of main.cpp)."""
+
+    def __init__(self, log=sys.stderr):
+        self.t0 = time.time()
+        self.c0 = time.process_time()
+        self.log = log
+
+    def note(self, msg: str):
+        print(f"[NOTE] {msg}", file=self.log)
+
+    def elapsed(self):
+        print(
+            f"       elapsed time {time.process_time() - self.c0:.2f} CPU"
+            f" seconds ({time.time() - self.t0:.2f} real seconds)\n",
+            file=self.log,
+        )
 
 
 def _load_inputs(contig_path, long_path, mapping_path, out_dir, cfg, t,
@@ -149,13 +170,15 @@ def run_assembler(
     log=sys.stderr,
     long_fofn: bool = False,
     mapping_fofn: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> dict:
-    """Full assembler run with consensus on ``device``; returns a stats
-    dict (uniq_freq, edge/contig counts, output path).
+    """Full assembler run with consensus on ``device`` (the card unless
+    the caller says ``"cpu"``); returns a stats dict (uniq_freq,
+    edge/contig counts, output path).
     ``long_fofn``/``mapping_fofn`` read the paths as file-of-file-names
     like the reference's ``--long-fofn``/``--mapping-fofn``."""
     cfg = cfg or AssembleConfig()
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     t = StageTimer(log)
     contigs, uniq_freq, lrs, n_aln = _load_inputs(

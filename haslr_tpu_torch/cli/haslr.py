@@ -4,7 +4,8 @@
 The same five stages, parameterised artifact names, flags and
 skip-if-exists resume as the reference driver (``bin/haslr.py:18-50``);
 long-read preparation, short-read assembly and overlap removal are the
-shared host stages of :mod:`haslr_tpu.cli.haslr`.  The aligner's
+port's copy of the host stages of :mod:`haslr_tpu.cli.haslr`, without
+its device mesh.  The aligner's
 extension and the consensus run on ``--device`` (``cuda``, the default,
 or ``cpu``).  Only ``--devices 1`` is accepted for now.
 
@@ -21,17 +22,96 @@ import os
 import sys
 import time
 
-from haslr_tpu.cli.haslr import (
-    _done,
-    _stamp,
-    assemble_srs,
-    prepare_lrs,
-    remove_short_src,
-)
-from haslr_tpu.config import PipelineConfig
+from haslr_tpu_torch.config import PipelineConfig, parse_genome_size
 
 # wall-clock per stage of the last run_pipeline call
 STAGE_TIMES: dict[str, float] = {}
+
+
+def _stamp(msg: str):
+    import datetime
+
+    now = datetime.datetime.now().strftime("%d-%b-%Y %H:%M:%S")
+    sys.stdout.write(f"[{now}] {msg}")
+    sys.stdout.flush()
+
+
+def _done(skipped=False):
+    sys.stdout.write("already exists\n" if skipped else "done\n")
+    sys.stdout.flush()
+
+
+def prepare_lrs(cfg: PipelineConfig) -> str:
+    from haslr_tpu_torch.sr import fastutils
+
+    lr_name = "lrall" if cfg.cov_lr == 0 else f"lr{cfg.cov_lr}x"
+    lr_file = f"{cfg.out}/{lr_name}.fasta"
+    if cfg.cov_lr == 0:
+        _stamp(f"renaming long reads and storing in {lr_file}... ")
+        if not os.path.isfile(lr_file):
+            fastutils.format_rename(list(cfg.long), lr_file)
+            _done()
+        else:
+            _done(skipped=True)
+    else:
+        _stamp(f"subsampling {cfg.cov_lr}x long reads to {lr_file}... ")
+        if not os.path.isfile(lr_file):
+            fastutils.subsample_longest(
+                list(cfg.long), lr_file, cfg.cov_lr,
+                parse_genome_size(cfg.genome),
+            )
+            _done()
+        else:
+            _done(skipped=True)
+    return lr_file
+
+
+def assemble_srs(cfg: PipelineConfig) -> str:
+    from haslr_tpu_torch.sr.assemble_sr import assemble_short_reads
+
+    prefix = f"{cfg.out}/sr_k{cfg.minia_kmer}_a{cfg.minia_solid}"
+    sr_asm = f"{prefix}.{cfg.minia_asm}.fa"
+    _stamp("assembling short reads... ")
+    if not os.path.isfile(sr_asm):
+        assemble_short_reads(
+            list(cfg.short), sr_asm,
+            kmer_size=cfg.minia_kmer,
+            min_abundance=cfg.minia_solid,
+            asm_type=cfg.minia_asm,
+        )
+        _done()
+    else:
+        _done(skipped=True)
+    return sr_asm
+
+
+def remove_short_src(cfg: PipelineConfig) -> tuple[str, str]:
+    """Returns (nooverlap_fasta, length_filtered_fasta).
+
+    Note the reference's asymmetry (bin/haslr.py:60,87): the aligner
+    targets the length-filtered file but the core assembler loads the
+    *unfiltered* nooverlap file — contig ids in the PAF are minia's
+    sequential names, which match file order only in the unfiltered file.
+    """
+    from haslr_tpu_torch.sr import fastutils, nooverlap
+
+    prefix = f"{cfg.out}/sr_k{cfg.minia_kmer}_a{cfg.minia_solid}"
+    sr_asm = cfg.contig if cfg.contig else f"{prefix}.{cfg.minia_asm}.fa"
+    noov = f"{prefix}.{cfg.minia_asm}.nooverlap.fa"
+    _stamp("removing overlaps in short read assembly... ")
+    if not os.path.isfile(noov):
+        nooverlap.remove_overlaps(sr_asm, noov, cfg.minia_kmer)
+        _done()
+    else:
+        _done(skipped=True)
+    good = f"{prefix}.{cfg.minia_asm}.nooverlap.{cfg.min_src}.fa"
+    _stamp("removing short sequences in short read assembly... ")
+    if not os.path.isfile(good):
+        fastutils.format_min_len(noov, good, cfg.min_src)
+        _done()
+    else:
+        _done(skipped=True)
+    return noov, good
 
 
 def _lr_name(cfg: PipelineConfig) -> str:
@@ -78,8 +158,6 @@ def assemble_lr(cfg: PipelineConfig, lr_file: str, src_file: str,
 
 def run_pipeline(cfg: PipelineConfig, device) -> str:
     """The five stages on ``device``; returns the final assembly path."""
-    from haslr_tpu import native
-
     if cfg.devices != 1:
         raise ValueError(
             f"--devices {cfg.devices}: only one device is supported so far"
@@ -92,13 +170,6 @@ def run_pipeline(cfg: PipelineConfig, device) -> str:
     lr_file = prepare_lrs(cfg)
     STAGE_TIMES["prepare_lrs"] = time.time() - t
     if cfg.contig is None:
-        # without the native library the SR stage would fall through to
-        # the reference's device k-mer counters, which need jax
-        if native.get_lib() is None:
-            raise RuntimeError(
-                "the native library (haslr_tpu/native, built with g++ -lz)"
-                " is unavailable; the short-read stage needs it"
-            )
         t = time.time()
         assemble_srs(cfg)
         STAGE_TIMES["assemble_srs"] = time.time() - t
@@ -159,7 +230,7 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
     longs = list(a.long)
     shorts = list(a.short or [])
     if a.long_fofn or a.short_fofn:
-        from haslr_tpu.core.io import read_fofn
+        from haslr_tpu_torch.core.io import read_fofn
 
         if a.long_fofn:
             longs = [f for fn in longs for f in read_fofn(fn)]

@@ -36,14 +36,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # reads, r_lens, drafts, d_lens, base, dirs (scratch or output), then each
 # entry point's outputs, B, R, D, W, match, mismatch, gap, its own ints,
-# stream
+# stream.  The row-scan entry points end their ints with the route: C,
+# wpr, reads_per_block.
 _SIGNATURES = {
-    # + planes, stats
-    "hx_rowscan_votes": [_P] * 8 + [_I] * 7 + [_P],
-    # + runs, n_runs; + maxr
-    "hx_rowscan_cigar": [_P] * 8 + [_I] * 8 + [_P],
-    # + mapping
-    "hx_rowscan_mapping": [_P] * 7 + [_I] * 7 + [_P],
+    # + planes, stats; + route
+    "hx_rowscan_votes": [_P] * 8 + [_I] * 10 + [_P],
+    # + runs, n_runs; + maxr, route
+    "hx_rowscan_cigar": [_P] * 8 + [_I] * 11 + [_P],
+    # + mapping; + route
+    "hx_rowscan_mapping": [_P] * 7 + [_I] * 10 + [_P],
     "hx_wavefront_dirs": [_P] * 6 + [_I] * 7 + [_P],
     # + mapping
     "hx_wavefront_mapping": [_P] * 7 + [_I] * 7 + [_P],

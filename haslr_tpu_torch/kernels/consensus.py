@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from haslr_tpu.core import seq as cseq
+from haslr_tpu_torch.core import seq as cseq
 from haslr_tpu_torch.kernels.consensus_dense import dense_consensus
 
 
@@ -21,10 +21,11 @@ def batched_consensus(
     gap: int = -8,
     rounds: int = 2,
     warn=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> list[str]:
     """Consensus string per window (a list of supporting subsequences),
-    polished on ``device``."""
+    polished on ``device`` (the card unless the caller says
+    ``"cpu"``)."""
     window_codes = [
         [cseq.encode(s) for s in seqs if len(s) > 0] for seqs in windows
     ]

@@ -338,17 +338,20 @@ def dense_consensus(
     gap: int = -8,
     rounds: int = 2,
     warn=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> list[np.ndarray]:
     """Consensus codes per window (each window: its supporting
-    subsequences as uint8 2-bit code arrays), polished on ``device``.
+    subsequences as uint8 2-bit code arrays), polished on ``device`` (the
+    card unless the caller says ``"cpu"``).
     ``warn``: optional callable for cap/drop/split notices.  Windows
     whose median draft exceeds the largest bucket are split, polished
     and stitched back (:func:`_expand_oversized`)."""
+    from haslr_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
     work_windows, plan = _expand_oversized(window_codes, warn)
     work_results = _dense_consensus_work(
-        work_windows, match, mismatch, gap, rounds, warn,
-        torch.device(device),
+        work_windows, match, mismatch, gap, rounds, warn, device,
     )
     out: list[np.ndarray] = []
     for entry in plan:

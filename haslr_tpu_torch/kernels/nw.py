@@ -49,11 +49,12 @@ def _resolve_engine(engine):
 
 
 def align_mapping_device_raw(reads, r_lens, drafts, d_lens, W=128, match=5,
-                             mismatch=-4, gap=-8, device="cpu"):
-    """Align host (numpy) batches on ``device`` with the active engine;
-    returns the (B, R) mapping as a DEVICE tensor (encoding of
-    :func:`traceback_batch`), int16 when D <= 32000 (the insertion code
-    -(j+2) must hold -(D+2)), else int32."""
+                             mismatch=-4, gap=-8, device=None):
+    """Align host (numpy) batches on ``device`` (the card unless the
+    caller says ``"cpu"``) with the active engine; returns the (B, R)
+    mapping as a DEVICE tensor (encoding of :func:`traceback_batch`),
+    int16 when D <= 32000 (the insertion code -(j+2) must hold -(D+2)),
+    else int32."""
     args = put_batch(device, reads, r_lens, drafts, d_lens)
     if _resolve_engine(None) == "rowscan":
         mapping = rowscan_mapping(*args, W, match, mismatch, gap)
@@ -64,7 +65,7 @@ def align_mapping_device_raw(reads, r_lens, drafts, d_lens, W=128, match=5,
 
 
 def align_mapping_device(reads, r_lens, drafts, d_lens, W=128, match=5,
-                         mismatch=-4, gap=-8, device="cpu") -> np.ndarray:
+                         mismatch=-4, gap=-8, device=None) -> np.ndarray:
     """Host-array wrapper around :func:`align_mapping_device_raw`."""
     return align_mapping_device_raw(
         reads, r_lens, drafts, d_lens, W, match, mismatch, gap, device
@@ -72,8 +73,9 @@ def align_mapping_device(reads, r_lens, drafts, d_lens, W=128, match=5,
 
 
 def banded_nw_batch(reads, r_lens, drafts, d_lens, W=128, match=5,
-                    mismatch=-4, gap=-8, device="cpu"):
-    """Align each read to its draft with the wavefront DP on ``device``.
+                    mismatch=-4, gap=-8, device=None):
+    """Align each read to its draft with the wavefront DP on ``device``
+    (the card unless the caller says ``"cpu"``).
     Returns ``(dirs, base)``: the (T+1, B, W) direction tensor (numpy
     uint8) and the band offsets, ready for :func:`traceback_batch`."""
     R = reads.shape[1]

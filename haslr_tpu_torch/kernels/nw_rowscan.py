@@ -18,6 +18,15 @@ of three products:
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for CUDA tensors (or raises); there is no fallback between the
 two.  Every entry point checks :func:`rowscan_supported`.
+
+The kernels keep two bits a direction in a global scratch, a thread
+owning C band lanes and a read WPR warps (32 * C * WPR lanes: 128, 256 or
+512); :func:`_route` picks among these by band width and launch size.  A
+band of another width (32 to 512 in steps of 32) runs on the next of
+these with its spare lanes masked, and code rows whose length is no
+multiple of four are padded to one (:func:`_word_rows`).
+:func:`pack_dirs_row` and :func:`resolve_packed` mirror the packed
+traceback step on the CPU.
 """
 
 from __future__ import annotations
@@ -31,12 +40,32 @@ NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2
 
 # direction-scratch budget per launch, by device type: the wrappers cut
-# the batch so that (rows + 1) * W bytes per read stay within it
+# the batch so that the scratch bytes per read (one byte a cell for the
+# plain versions and the wavefront kernels, two bits a cell for the
+# row-scan kernels) stay within it
 DIRS_BUDGET = {"cuda": 4 << 30, "cpu": 256 << 20}
 
 # kernel launches by wrapper (plain-version calls do not count); reset
 # and read by callers that must show the main path went through a kernel
 LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0, "rowscan_mapping": 0}
+
+# like LAUNCHES, for callers that report on a run and for nothing on the
+# main path: when a list, every kernel launch appends (name, B, R, W,
+# start event, end event), CUDA events recorded around the launch on its
+# stream; None (the default) records nothing
+LAUNCH_LOG: list | None = None
+
+# the row-scan kernels' routes: (C lanes a thread, WPR warps a read) by
+# the lanes computed, 32 * C * WPR.  One warp a read fills the card with
+# reads.  At 512 lanes a launch of fewer than SMALL_LAUNCH reads (the
+# extension's largest buckets) spreads a read over four warps at C = 4
+# with one barrier a row instead: there one row's latency is the
+# launch's time.  Measured on an H100 at S = 16384: 7.1 ms against 8.1
+# at 32 and at 128 reads; at 512 reads and S = 4096 one warp a read wins,
+# 2.16 ms against 2.38.
+ROUTES = {128: ((4, 1),), 256: ((8, 1),), 512: ((16, 1), (4, 4))}
+SMALL_LAUNCH = 256
+MAX_READS_PER_BLOCK = 16      # one warp a read: reads (warps) a block
 
 
 def row_bases(R: int, D: int, W: int) -> np.ndarray:
@@ -270,9 +299,33 @@ def rowscan_cigar_plain(reads, r_lens, drafts, d_lens, W, match, mismatch,
 # --------------------------------------------------------------------------
 
 
+def band_table(R: int, D: int, W: int,
+               rows: int | None = None) -> np.ndarray:
+    """What the row-scan kernels read of the band, one int32 array:
+    :func:`row_bases` (R + 1 entries), then R // 32 + 1 words of step
+    bits, bit ``i & 31`` of word ``i >> 5`` set where the band moves a
+    column between rows ``i - 1`` and ``i``.  With ``rows`` >= R the
+    table is laid out for reads stored ``rows`` codes wide: the band of
+    (R, D, W) standing still over the rows past R."""
+    rows = R if rows is None else rows
+    base = np.zeros(rows + 1, np.int32)
+    base[: R + 1] = row_bases(R, D, W)
+    base[R + 1 :] = base[R]
+    bits = np.zeros((rows // 32 + 1) * 32, np.uint32)
+    bits[1 : rows + 1] = np.diff(base)
+    words = (bits.reshape(-1, 32) << np.arange(32, dtype=np.uint32)).sum(
+        1, dtype=np.uint32)
+    return np.concatenate([base, words.view(np.int32)])
+
+
 @functools.lru_cache(maxsize=None)
-def _base_tensor(R, D, W, device):
-    return torch.from_numpy(row_bases(R, D, W)).to(device)
+def _base_tensor(R, D, W, rows, device):
+    return torch.from_numpy(band_table(R, D, W, rows)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda_args(reads, r_lens, drafts, d_lens, W):
@@ -290,6 +343,9 @@ def _check_cuda_args(reads, r_lens, drafts, d_lens, W):
                 f" on {reads.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: the kernels read 32-bit words; the "
+                             "tensor's storage must be 4-byte aligned")
     if not (32 <= W <= 512 and W % 32 == 0):
         raise ValueError(f"the CUDA NW kernels take W in 32..512, "
                          f"a multiple of 32 (got {W})")
@@ -299,10 +355,10 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
                    per_read, outs, extra):
     """Launch kernel ``hx_{name}`` over the batch in chunks whose
     direction scratch (``per_read`` bytes a read) fits
-    :data:`DIRS_BUDGET`, counting each launch in ``launches[name]``;
-    ``base`` is the band's lane-0 column table on the device, ``outs``
-    (tensor, bytes per read) output pairs, ``extra`` trailing int
-    arguments."""
+    :data:`DIRS_BUDGET`, counting each launch
+    in ``launches[name]``; ``base`` is the band's lane-0 column table on
+    the device, ``outs`` (tensor, bytes per read) output pairs, ``extra``
+    trailing int arguments."""
     from haslr_tpu_torch.kernels import _build
 
     B, R = reads.shape
@@ -311,27 +367,105 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
     dirs = torch.empty(chunk * per_read, dtype=torch.uint8,
                        device=reads.device)
     fn = _build.lib()[f"hx_{name}"]
-    stream = torch.cuda.current_stream(reads.device).cuda_stream
+    stream = torch.cuda.current_stream(reads.device)
     for lo in range(0, B, chunk):
         n = min(chunk, B - lo)
+        if LAUNCH_LOG is not None:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record(stream)
         err = fn(
             reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
             drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
             base.data_ptr(), dirs.data_ptr(),
             *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
-            n, R, D, W, *extra, stream,
+            n, R, D, W, *extra, stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")
         launches[name] += 1
+        if LAUNCH_LOG is not None:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record(stream)
+            LAUNCH_LOG.append((name, n, R, W, t0, t1))
 
 
-def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
-    R = reads.shape[1]
+def packed_bytes(R: int, lanes: int) -> int:
+    """Bytes of one read's packed directions: (R + 1) rows of lanes / 4."""
+    return (R + 1) * (lanes // 4)
+
+
+def _route(W, B, n_sm):
+    """How the row-scan kernels run a launch of ``B`` reads at band ``W``
+    on a card of ``n_sm`` SMs: ``(C, wpr, reads_per_block)``, computing
+    32 * C * wpr >= W lanes.  One warp a read (four at 512 lanes below
+    :data:`SMALL_LAUNCH` reads) and as many reads a block as spread the
+    launch over every SM (a power of two up to
+    :data:`MAX_READS_PER_BLOCK`).  Raises on a band no route takes."""
+    if not (32 <= W <= 512 and W % 32 == 0):
+        raise ValueError(f"the CUDA NW kernels take W in 32..512, "
+                         f"a multiple of 32 (got {W})")
+    lanes = min(n for n in ROUTES if n >= W)
+    C, wpr = ROUTES[lanes][-1 if B < SMALL_LAUNCH else 0]
+    rpb = 1
+    while wpr == 1 and rpb < MAX_READS_PER_BLOCK and rpb * n_sm < B:
+        rpb *= 2
+    return C, wpr, rpb
+
+
+def _word_rows(reads, r_lens, drafts):
+    """The batch as the kernels read it, code rows a multiple of four
+    wide: ``(reads, r_lens, drafts)``, the very tensors where R and D are
+    such multiples.  Else the rows are padded with code 4, and a read
+    longer than R (which no row of the walk reaches) stays longer than
+    the padded row."""
+    R, D = reads.shape[1], drafts.shape[1]
+    Rk, Dk = -(-R // 4) * 4, -(-D // 4) * 4
+    if Rk != R:
+        reads = torch.nn.functional.pad(reads, (0, Rk - R), value=4)
+        r_lens = torch.where(r_lens > R, Rk + 1, r_lens).to(torch.int32)
+    if Dk != D:
+        drafts = torch.nn.functional.pad(drafts, (0, Dk - D), value=4)
+    return reads, r_lens, drafts
+
+
+def _launch(name, reads, r_lens, drafts, d_lens, R, D, W, outs, extra):
+    """Launch ``hx_{name}`` on a :func:`_word_rows` batch of band
+    (R, D, W)."""
+    B, Rk = reads.shape
+    C, wpr, rpb = _route(W, B, _sm_count(reads.device))
     launch_chunked(name, LAUNCHES, reads, r_lens, drafts, d_lens, W,
-                   _base_tensor(R, drafts.shape[1], W, reads.device),
-                   (R + 1) * W, outs, extra)
+                   _base_tensor(R, D, W, Rk, reads.device),
+                   packed_bytes(Rk, 32 * C * wpr), outs,
+                   (*extra, C, wpr, rpb))
+
+
+def pack_dirs_row(row: np.ndarray) -> np.ndarray:
+    """One direction row (W,) of values 0..2 as the kernels store it: two
+    bits a lane, 16 lanes a uint32 word, lane k in bits 2(k % 16) and
+    2(k % 16) + 1 of word k // 16."""
+    r = np.asarray(row, np.uint32).reshape(-1, 16)
+    return (r << (2 * np.arange(16, dtype=np.uint32))).sum(
+        1, dtype=np.uint32)
+
+
+def resolve_packed(words: np.ndarray, lane: int):
+    """The kernels' traceback step on a packed row: the nearest non-LEFT
+    cell at or left of ``lane`` as ``(direction, lane)``, or ``None`` when
+    there is none (or ``lane`` is out of the band): per word a mask of the
+    cells whose high code bit is clear, cut at ``lane``, and a
+    leading-zero count."""
+    n_words = len(words)
+    if not 0 <= lane < 16 * n_words:
+        return None
+    for q in range(lane >> 4, -1, -1):  # the kernel: one ballot + clz
+        m = ~int(words[q]) & 0xAAAAAAAA
+        if q == lane >> 4:
+            m &= 0xFFFFFFFF >> (30 - 2 * (lane & 15))
+        if m:
+            cell = (m.bit_length() - 1) >> 1  # 31 - clz(m), halved
+            return (int(words[q]) >> (2 * cell)) & 1, 16 * q + cell
+    return None
 
 
 def takes_plain(reads, r_lens, drafts, d_lens, W) -> bool:
@@ -372,18 +506,24 @@ def rowscan_votes(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
     and ``stats`` (B, 2) int32 (min / max aligned draft column).
 
     CPU tensors: :func:`rowscan_votes_plain`.  CUDA tensors (uint8 codes,
-    int32 lengths, contiguous): the ``hx_rowscan_votes`` kernel."""
+    int32 lengths, contiguous): the ``hx_rowscan_votes`` kernel, by
+    :func:`_route`."""
     if _on_cpu(reads, r_lens, drafts, d_lens, W):
         return chunked_plain(reads, r_lens, drafts, d_lens, W,
                              rowscan_votes_plain, (match, mismatch, gap),
                              (reads.shape[1] + 1) * W)
-    B = reads.shape[0]
+    B, R = reads.shape
     D = drafts.shape[1]
-    planes = torch.full((B, 3 * D + 256), 4, dtype=torch.uint8,
+    reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
+    Dk = drafts.shape[1]
+    planes = torch.full((B, 3 * Dk + 256), 4, dtype=torch.uint8,
                         device=reads.device)
     stats = torch.empty((B, 2), dtype=torch.int32, device=reads.device)
-    _launch("rowscan_votes", reads, r_lens, drafts, d_lens, W,
-            ((planes, 3 * D + 256), (stats, 8)), (match, mismatch, gap))
+    _launch("rowscan_votes", reads, r_lens, drafts, d_lens, R, D, W,
+            ((planes, 3 * Dk + 256), (stats, 8)), (match, mismatch, gap))
+    if Dk != D:  # the three planes of a D-wide draft out of the Dk-wide
+        planes = torch.cat([planes[:, :D], planes[:, Dk : Dk + D + 128],
+                            planes[:, 2 * Dk + 128 : 2 * Dk + D + 256]], 1)
     return planes, stats
 
 
@@ -393,17 +533,18 @@ def rowscan_cigar(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
     ``n_runs`` (B,) int32 (> maxr: overflow, the caller realigns).
 
     CPU tensors: :func:`rowscan_cigar_plain`.  CUDA tensors: the
-    ``hx_rowscan_cigar`` kernel."""
+    ``hx_rowscan_cigar`` kernel, by :func:`_route`."""
     if _on_cpu(reads, r_lens, drafts, d_lens, W):
         return chunked_plain(reads, r_lens, drafts, d_lens, W,
                              rowscan_cigar_plain,
                              (match, mismatch, gap, maxr),
                              (reads.shape[1] + 1) * W)
-    B = reads.shape[0]
+    B, R = reads.shape
+    D = drafts.shape[1]
     runs = torch.zeros((B, maxr), dtype=torch.int32, device=reads.device)
     n_runs = torch.empty(B, dtype=torch.int32, device=reads.device)
-    _launch("rowscan_cigar", reads, r_lens, drafts, d_lens, W,
-            ((runs, 4 * maxr), (n_runs, 4)),
+    _launch("rowscan_cigar", *_word_rows(reads, r_lens, drafts), d_lens,
+            R, D, W, ((runs, 4 * maxr), (n_runs, 4)),
             (match, mismatch, gap, maxr))
     return runs, n_runs
 
@@ -413,7 +554,7 @@ def rowscan_mapping(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
     (encoding of :func:`rowscan_mapping_plain`).
 
     CPU tensors: :func:`rowscan_mapping_plain`.  CUDA tensors: the
-    ``hx_rowscan_mapping`` kernel."""
+    ``hx_rowscan_mapping`` kernel, by :func:`_route`."""
     if _on_cpu(reads, r_lens, drafts, d_lens, W):
         (mapping,) = chunked_plain(
             reads, r_lens, drafts, d_lens, W,
@@ -422,15 +563,19 @@ def rowscan_mapping(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
         )
         return mapping
     B, R = reads.shape
-    mapping = torch.full((B, R), -1, dtype=torch.int32, device=reads.device)
-    _launch("rowscan_mapping", reads, r_lens, drafts, d_lens, W,
-            ((mapping, 4 * R),), (match, mismatch, gap))
-    return mapping
+    D = drafts.shape[1]
+    reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
+    Rk = reads.shape[1]
+    mapping = torch.full((B, Rk), -1, dtype=torch.int32, device=reads.device)
+    _launch("rowscan_mapping", reads, r_lens, drafts, d_lens, R, D, W,
+            ((mapping, 4 * Rk),), (match, mismatch, gap))
+    return mapping if Rk == R else mapping[:, :R].contiguous()
 
 
 def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
-                          mismatch=-4, gap=-2, maxr=None, device="cpu"):
-    """Align host (numpy) batches on ``device`` and emit CIGAR runs;
+                          mismatch=-4, gap=-2, maxr=None, device=None):
+    """Align host (numpy) batches on ``device`` (the card unless the
+    caller says ``"cpu"``) and emit CIGAR runs;
     returns DEVICE tensors ``(runs (B, MAXR) int32, n_runs (B,) int32)``
     with MAXR = max(128, R // 4) by default (the reference's choice)."""
     R = reads.shape[1]
@@ -441,8 +586,12 @@ def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
 
 
 def put_batch(device, reads, r_lens, drafts, d_lens):
-    """A host (numpy) batch as the wrappers take it on ``device``:
-    contiguous uint8 codes and int32 lengths."""
+    """A host (numpy) batch as the wrappers take it on ``device``
+    (``None``: the card): contiguous uint8 codes and int32 lengths."""
+    from haslr_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 

@@ -78,7 +78,8 @@ def test_dense_consensus_matches_reference_bench_windows():
     lengths = [int(x) for x in rng.integers(200, 400, 12)]
     wins = _windows(1, lengths + [60, 150, 1500], 13, 0.06)
     wins += [[], [cseq.encode("ACGTACGT")]]
-    _assert_same(cd.dense_consensus(wins), pcd.dense_consensus(wins))
+    _assert_same(cd.dense_consensus(wins),
+                 pcd.dense_consensus(wins, device="cpu"))
 
 
 @pytest.fixture
@@ -104,7 +105,7 @@ def test_dense_consensus_matches_reference_oversized(small_buckets):
     ]
     ref_warn, got_warn = [], []
     ref = cd.dense_consensus(wins, warn=ref_warn.append)
-    got = pcd.dense_consensus(wins, warn=got_warn.append)
+    got = pcd.dense_consensus(wins, warn=got_warn.append, device="cpu")
     _assert_same(ref, got)
     assert any("split into" in w for w in got_warn)
     assert [w for w in ref_warn if "split" in w] == \
@@ -150,9 +151,10 @@ def test_dense_consensus_matches_reference_wavefront(wavefront):
     rng = np.random.default_rng(0)
     lengths = [int(x) for x in rng.integers(200, 400, 12)]
     wins = _windows(1, lengths + [60, 150, 1500], 13, 0.06)
-    _assert_same(cd.dense_consensus(wins), pcd.dense_consensus(wins))
+    _assert_same(cd.dense_consensus(wins),
+                 pcd.dense_consensus(wins, device="cpu"))
     windows = _engines_agree_windows()
-    assert batched_consensus(windows) == p_batched(windows)
+    assert batched_consensus(windows) == p_batched(windows, device="cpu")
 
 
 def test_pack2_and_unpack_roundtrip():

@@ -193,7 +193,7 @@ def test_cigar_overflow_flagged():
 
 def test_cigar_runs_device_raw_shapes():
     _ja, _ta, arrays = _batch(3, 8, 512, 128)
-    runs, n_runs = prs.cigar_runs_device_raw(*arrays, W=128)
+    runs, n_runs = prs.cigar_runs_device_raw(*arrays, W=128, device="cpu")
     assert runs.shape == (8, 128) and runs.dtype == torch.int32
     assert n_runs.shape == (8,) and n_runs.dtype == torch.int32
     assert (n_runs[:4] > 0).all()
@@ -279,3 +279,121 @@ def test_failed_build_raises_with_compiler_stderr(tmp_path, monkeypatch):
         _build.lib()
     assert not list(build_dir.glob("*.so"))
     assert "lib" not in _build._state
+
+
+def _byte_scan(row, lane):
+    """``_traceback``'s step on one direction row (the plain version's
+    cummax over ``lane << 2 | dir`` of the non-LEFT cells, gathered at
+    ``lane``): ``(direction, lane)`` or None for a forced UP."""
+    W = row.shape[0]
+    if not 0 <= lane < W:
+        return None
+    lanes = torch.arange(W, dtype=torch.int64)
+    r = torch.from_numpy(row.astype(np.int64))
+    val = torch.where(r != prs.LEFT, (lanes << 2) | r, -1)
+    picked = int(torch.cummax(val, 0).values[lane])
+    return None if picked < 0 else (picked & 3, picked >> 2)
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+def test_packed_walk_step_matches_byte_scan(W):
+    """The kernels' traceback step on a row packed to two bits a lane
+    (mask of the non-LEFT cells, cut at the lane, leading-zero count)
+    against the byte scan, on random rows, sparse rows, all-LEFT rows and
+    every lane including 0 and out-of-band ones."""
+    rng = np.random.default_rng(W)
+    rows = [rng.integers(0, 3, W).astype(np.uint8) for _ in range(6)]
+    rows.append(np.full(W, prs.LEFT, np.uint8))  # all LEFT
+    sparse = np.full(W, prs.LEFT, np.uint8)
+    sparse[[0, W // 2 + 3]] = (prs.UP, prs.DIAG)
+    rows.append(sparse)
+    late = np.full(W, prs.LEFT, np.uint8)  # nothing at or left of most lanes
+    late[W - 1] = prs.DIAG
+    rows.append(late)
+    for row in rows:
+        words = prs.pack_dirs_row(row)
+        assert words.dtype == np.uint32 and words.shape == (W // 16,)
+        unpacked = (words[:, None] >> (2 * np.arange(16, dtype=np.uint32))) & 3
+        np.testing.assert_array_equal(unpacked.reshape(-1), row)
+        for lane in (-1, *range(W), W, W + 5):
+            assert prs.resolve_packed(words, lane) == _byte_scan(row, lane)
+
+
+def test_band_table_holds_bases_then_step_bits():
+    for R, W in ((128, 128), (512, 128), (2048, 256), (1024, 512)):
+        table = prs.band_table(R, R, W)
+        base = prs.row_bases(R, R, W)
+        assert table.dtype == np.int32
+        assert len(table) == R + 1 + R // 32 + 1
+        np.testing.assert_array_equal(table[: R + 1], base)
+        words = table[R + 1 :].view(np.uint32)
+        i = np.arange(1, R + 1)
+        np.testing.assert_array_equal((words[i >> 5] >> (i & 31)) & 1,
+                                      np.diff(base))
+        assert (words[0] & 1) == 0
+
+
+@pytest.mark.parametrize("W,B,want", [
+    (128, 2048, (4, 1)),
+    (128, 8, (4, 1)),
+    (256, 4096, (8, 1)),
+    (256, 64, (8, 1)),
+    (512, 4096, (16, 1)),
+    (512, 32, (4, 4)),
+    (32, 2048, (4, 1)),   # a narrower band: the next lane count, masked
+    (96, 64, (4, 1)),
+    (160, 2048, (8, 1)),
+    (320, 4096, (16, 1)),
+    (480, 32, (4, 4)),
+])
+def test_route_by_width_and_launch_size(W, B, want):
+    n_sm = 132
+    C, wpr, rpb = prs._route(W, B, n_sm)
+    assert (C, wpr) == want
+    assert 32 * C * wpr in prs.ROUTES and 0 <= 32 * C * wpr - W < 256
+    assert 1 <= rpb <= prs.MAX_READS_PER_BLOCK
+    assert rpb == 1 or wpr == 1
+    # enough reads a block to spread the launch over the SMs, no more
+    assert rpb == prs.MAX_READS_PER_BLOCK or rpb * n_sm >= B or wpr > 1
+    assert prs._route(W, B, 2 * n_sm)[2] <= rpb
+
+
+def test_route_refused_and_scratch_size():
+    assert prs.packed_bytes(512, 128) == 513 * 32
+    assert prs.packed_bytes(16384, 512) == 16385 * 128
+    for W in (0, 16, 48, 544, 1024):
+        with pytest.raises(ValueError, match="W in 32..512"):
+            prs._route(W, 64, 132)
+
+
+@pytest.mark.parametrize("R,D", [(512, 512), (510, 509), (301, 300),
+                                 (1023, 1021)])
+def test_word_rows_pads_to_multiples_of_four(R, D):
+    """What the kernels are given for code rows of any width: rows a
+    multiple of four wide, padded with code 4, the lengths kept (a read
+    longer than R stays longer than the padded row), and a band table of
+    (R, D, W) laid out for the padded rows."""
+    rng = np.random.default_rng(R)
+    B = 5
+    reads = torch.from_numpy(rng.integers(0, 4, (B, R)).astype(np.uint8))
+    drafts = torch.from_numpy(rng.integers(0, 4, (B, D)).astype(np.uint8))
+    r_lens = torch.tensor([0, 7, R, R + 1, R + 9], dtype=torch.int32)
+    rk, lk, dk = prs._word_rows(reads, r_lens, drafts)
+    Rk, Dk = rk.shape[1], dk.shape[1]
+    assert (Rk % 4, Dk % 4) == (0, 0) and 0 <= Rk - R < 4 and 0 <= Dk - D < 4
+    if (Rk, Dk) == (R, D):
+        assert rk is reads and dk is drafts and lk is r_lens
+    assert torch.equal(rk[:, :R], reads) and bool((rk[:, R:] == 4).all())
+    assert torch.equal(dk[:, :D], drafts) and bool((dk[:, D:] == 4).all())
+    assert lk.dtype == torch.int32 and torch.equal(lk[:3], r_lens[:3])
+    assert bool((lk[3:] > Rk).all())
+    W = 96
+    table = prs.band_table(R, D, W, Rk)
+    base = prs.row_bases(R, D, W)
+    assert len(table) == Rk + 1 + Rk // 32 + 1
+    np.testing.assert_array_equal(table[: R + 1], base)
+    assert (table[R + 1 : Rk + 1] == base[R]).all()
+    words = table[Rk + 1 :].view(np.uint32)
+    i = np.arange(1, Rk + 1)
+    np.testing.assert_array_equal((words[i >> 5] >> (i & 31)) & 1,
+                                  np.diff(table[: Rk + 1]))

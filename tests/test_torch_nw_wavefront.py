@@ -164,7 +164,7 @@ def test_unknown_engine_raises(monkeypatch):
     monkeypatch.setattr(pnw, "ENGINE", "diagonal")
     _ja, _ta, arrays = _batch(3, 4, 256, 128)
     with pytest.raises(ValueError, match="unknown NW engine"):
-        pnw.align_mapping_device(*arrays, 128)
+        pnw.align_mapping_device(*arrays, 128, device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["dirs", "mapping", "votes"])
