@@ -12,8 +12,10 @@ Phases, one printed line each (any failure raises):
    launch limit; ragged, empty, out-of-gate and pad rows, the
    MAXR-overflow batch, and S=16384/W=512 at 32 reads) and at bands and
    row widths off the main path (W = 32 to 480, R and D no multiples of
-   four); then each kernel's time (CUDA events) beside its plain
-   version's and its bound on this card;
+   four); the three wavefront kernels likewise at every route of theirs,
+   at masked bands, at R != D and at odd row widths, and the mapping
+   kernel at S=16384/W=512; then each kernel's time (CUDA events) beside
+   its plain version's and its bound on this card;
 4. the golden assembly (``tests/golden``) through the CUDA consensus,
    byte for byte;
 5. the consensus workload (4096 windows x 13 reads x ~300 bp at 6 %
@@ -88,14 +90,18 @@ KERNELS = {
 # the published 67 TFLOP/s of float32)
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_S = 132 * 64 * 1.98e9
-# int32 operations a DP cell, as each recurrence is written.  Row-scan:
+# int32 operations a DP cell that the function needs.  Row-scan: the
 # substitution score (compare, select), two candidate adds, their max, the
 # valid mask (compare, select), the -gap*k shift, the scan max, the +gap*k
-# shift, the direction (two compares, two selects).  Wavefront: the score
-# (2), three candidate adds, their three gates (i >= 1, j >= 1: two
-# compares, three selects), two maxes, the direction (4), the valid mask
-# (compare, select).
-OPS_PER_CELL = {"rowscan": 14, "wavefront": 18}
+# shift, the direction (two compares, two selects).  Wavefront directions
+# (every cell of the tensor must be the reference's, so every gate
+# counts): the score (2), three candidate adds, their three gates (i >= 1,
+# j >= 1: two compares, three selects), two maxes, the direction (4), the
+# valid mask (compare, select).  Wavefront mapping and votes: only cells
+# the walk can reach count, which need no gate and no upper mask, and a
+# tag in the candidates' low bits makes the maximum carry the direction:
+# the score (2), three adds, two maxes, the tag cleared.
+OPS_PER_CELL = {"rowscan": 14, "wavefront_dirs": 18, "wavefront": 8}
 
 
 def kernel_bound(name, r_lens, d_lens, R, D, W, in_bytes, out_bytes):
@@ -110,7 +116,8 @@ def kernel_bound(name, r_lens, d_lens, R, D, W, in_bytes, out_bytes):
         rows = len(r_lens) * (R + D)
     else:
         rows = int((r_lens.clamp(0, R) + d_lens.clamp(0, D)).sum())
-    ops_ms = rows * W * OPS_PER_CELL[engine] / PEAK_INT32_S * 1e3
+    ops = OPS_PER_CELL.get(name, OPS_PER_CELL[engine])
+    ops_ms = rows * W * ops / PEAK_INT32_S * 1e3
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms \
         else (bytes_ms, "bytes")
@@ -303,6 +310,42 @@ def check_shape(dev, R, D, W, B, seed, overflow=False):
               (f"stats {what}", stats_k, stats_p),
               (f"mapping {what}", map_k, map_p)])
     return rs._route(W, B, rs._sm_count(dev))[:2]
+
+
+def check_wavefront_shape(dev, R, D, W, B, seed, only=None):
+    """B4, B5 and B6 (or those in ``only``) on the card at one shape
+    against their plain versions: planes, stats and mapping on every row,
+    B6 on every cell, exact; returns the (C, WPR) route the wrappers
+    took."""
+    import numpy as np
+
+    from haslr_tpu_torch.kernels import nw_rowscan as rs
+    from haslr_tpu_torch.kernels import nw_wavefront as wf
+
+    rng = np.random.default_rng(seed)
+    reads, r_lens, drafts, d_lens = mutated_batch(rng, B, min(R, D))
+    reads = np.pad(reads, ((0, 0), (0, R - reads.shape[1])),
+                   constant_values=4)
+    drafts = np.pad(drafts, ((0, 0), (0, D - drafts.shape[1])),
+                    constant_values=4)
+    args = _to(dev, reads, r_lens, drafts, d_lens)
+    what = f"R={R} D={D} W={W} B={B}"
+    pairs = []
+    if only is None or "wavefront_votes" in only:
+        planes_k, stats_k = wf.wavefront_votes(*args, W, 5, -4, -8)
+        planes_p, stats_p = wf.wavefront_votes_plain(*args, W, 5, -4, -8)
+        pairs += [(f"planes {what}", planes_k, planes_p),
+                  (f"stats {what}", stats_k, stats_p)]
+    if only is None or "wavefront_mapping" in only:
+        pairs.append((f"mapping {what}",
+                      wf.wavefront_mapping(*args, W, 2, -4, -2),
+                      wf.wavefront_mapping_plain(*args, W, 2, -4, -2)))
+    if only is None or "wavefront_dirs" in only:
+        pairs.append((f"dirs {what}",
+                      wf.wavefront_dirs(*args, W, 5, -4, -8),
+                      wf.wavefront_dirs_plain(*args, W, 5, -4, -8)))
+    _max_err(pairs)
+    return wf._route(W, B, rs._sm_count(dev))[:2]
 
 
 def check_votes(dev, S, W, B, seed, engine="rowscan"):
@@ -818,11 +861,11 @@ def main():
     # masked or padded
     route_shapes = (
         (512, 512, 128, 64), (1024, 1024, 128, 64), (2048, 2048, 256, 32),
-        (1024, 1024, 512, 24), (1024, 1024, 512, 272),
+        (1024, 1024, 512, 24), (1024, 1024, 512, 520),
         (4096, 4096, 512, 16), (2048, 2048, 512, 256),
         (16384, 16384, 512, 32),
         (512, 512, 32, 64), (512, 512, 96, 64), (1024, 1024, 160, 32),
-        (1024, 1024, 480, 16), (1024, 1024, 320, 260),
+        (1024, 1024, 480, 16), (1024, 1024, 320, 520),
         (510, 510, 128, 64), (510, 509, 96, 64), (301, 299, 32, 64),
         (2047, 2045, 256, 32), (1022, 1021, 512, 16),
     )
@@ -839,8 +882,33 @@ def main():
           kernels=["rowscan_votes", "rowscan_cigar", "rowscan_mapping"],
           shapes_R_D_W_B_C_WPR=took, max_abs_err=0,
           seconds=time.time() - t_routes)
+    # every route of the wavefront design, (C, WPR) by W and by B on either
+    # side of the small-launch limit; masked bands; R != D and row widths
+    # that are no multiples of four; the mapping kernel's longest bucket
+    wf_shapes = (
+        (512, 512, 128, 64), (2048, 2048, 256, 32), (1024, 1024, 512, 24),
+        (1024, 1024, 512, 520), (4096, 4096, 512, 16),
+        (512, 512, 32, 64), (512, 512, 96, 64), (1024, 1024, 160, 32),
+        (1024, 1024, 480, 16), (1024, 1024, 320, 520),
+        (510, 509, 128, 64), (301, 299, 32, 64), (2047, 2045, 256, 32),
+        (1022, 1021, 512, 16), (600, 512, 128, 32), (512, 600, 128, 32),
+    )
+    t_routes = time.time()
+    took = [[R, D, W, B, *check_wavefront_shape(dev, R, D, W, B, R + 13)]
+            for R, D, W, B in wf_shapes]
+    took.append([16384, 16384, 512, 4,
+                 *check_wavefront_shape(dev, 16384, 16384, 512, 4, 29,
+                                        only=("wavefront_mapping",)),
+                 "mapping only"])
+    if {(C, wpr) for _R, _D, _W, _B, C, wpr, *_ in took} != want:
+        raise AssertionError(f"phase 3c did not take every route: {took}")
+    _line("3c wavefront routes == plain", tolerance=TOL,
+          kernels=["wavefront_votes", "wavefront_mapping", "wavefront_dirs"],
+          shapes_R_D_W_B_C_WPR=took, max_abs_err=0,
+          seconds=time.time() - t_routes)
     times = {S: time_pair(dev, S, 128, 2048, S + 2) for S in (512, 1024)}
-    big = time_pair(dev, 16384, 512, 32, 16386, only=("rowscan_cigar",),
+    big = time_pair(dev, 16384, 512, 32, 16386,
+                    only=("rowscan_cigar", "wavefront_mapping"),
                     plain_once=True)
     for name in KERNELS:
         _line("3b time and bound", kernel=name, card=smi,

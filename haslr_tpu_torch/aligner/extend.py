@@ -78,9 +78,9 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
     for S, idxs in sorted(buckets.items()):
         W = _band_width(S)
         # reads a launch: the reference's rule on the direction scratch
-        # (256 MB at one byte a cell), which the row-scan kernels' two
-        # bits a cell stretch to four times the reads
-        cells = (256 << 20) * (4 if use_runs else 1)
+        # (256 MB at one byte a cell), which the kernels' two bits a cell
+        # stretch to four times the reads under either engine
+        cells = (256 << 20) * 4
         max_b = 32
         while max_b * 2 * (2 * S + 1) * W <= cells:
             max_b *= 2

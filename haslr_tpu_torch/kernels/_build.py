@@ -37,7 +37,8 @@ _I = ctypes.c_int
 # reads, r_lens, drafts, d_lens, base, dirs (scratch or output), then each
 # entry point's outputs, B, R, D, W, match, mismatch, gap, its own ints,
 # stream.  The row-scan entry points end their ints with the route: C,
-# wpr, reads_per_block.
+# wpr, reads_per_block; the wavefront ones take the code rows' widths for
+# R and D and end with the band's R and D and the route.
 _SIGNATURES = {
     # + planes, stats; + route
     "hx_rowscan_votes": [_P] * 8 + [_I] * 10 + [_P],
@@ -45,11 +46,11 @@ _SIGNATURES = {
     "hx_rowscan_cigar": [_P] * 8 + [_I] * 11 + [_P],
     # + mapping; + route
     "hx_rowscan_mapping": [_P] * 7 + [_I] * 10 + [_P],
-    "hx_wavefront_dirs": [_P] * 6 + [_I] * 7 + [_P],
+    "hx_wavefront_dirs": [_P] * 6 + [_I] * 12 + [_P],
     # + mapping
-    "hx_wavefront_mapping": [_P] * 7 + [_I] * 7 + [_P],
+    "hx_wavefront_mapping": [_P] * 7 + [_I] * 12 + [_P],
     # + planes, stats
-    "hx_wavefront_votes": [_P] * 8 + [_I] * 7 + [_P],
+    "hx_wavefront_votes": [_P] * 8 + [_I] * 12 + [_P],
 }
 
 

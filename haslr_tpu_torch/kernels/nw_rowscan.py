@@ -41,8 +41,7 @@ DIAG, UP, LEFT = 0, 1, 2
 
 # direction-scratch budget per launch, by device type: the wrappers cut
 # the batch so that the scratch bytes per read (one byte a cell for the
-# plain versions and the wavefront kernels, two bits a cell for the
-# row-scan kernels) stay within it
+# plain versions, two bits a cell for the kernels) stay within it
 DIRS_BUDGET = {"cuda": 4 << 30, "cpu": 256 << 20}
 
 # kernel launches by wrapper (plain-version calls do not count); reset
@@ -55,16 +54,20 @@ LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0, "rowscan_mapping": 0}
 # stream; None (the default) records nothing
 LAUNCH_LOG: list | None = None
 
-# the row-scan kernels' routes: (C lanes a thread, WPR warps a read) by
-# the lanes computed, 32 * C * WPR.  One warp a read fills the card with
-# reads.  At 512 lanes a launch of fewer than SMALL_LAUNCH reads (the
-# extension's largest buckets) spreads a read over four warps at C = 4
-# with one barrier a row instead: there one row's latency is the
-# launch's time.  Measured on an H100 at S = 16384: 7.1 ms against 8.1
-# at 32 and at 128 reads; at 512 reads and S = 4096 one warp a read wins,
-# 2.16 ms against 2.38.
+# the kernels' routes (row-scan and wavefront alike): (C lanes a thread,
+# WPR warps a read) by the lanes computed, 32 * C * WPR.  One warp a read
+# fills the card with reads.  At 512 lanes a launch of fewer than
+# SMALL_LAUNCH reads (the extension's largest buckets) spreads a read over
+# four warps at C = 4 with one barrier a row or diagonal instead: there
+# one step's latency is the launch's time.  Measured on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W), ms at one warp a read against four, CIGAR
+# kernel / wavefront mapping kernel: 64 reads of S = 4096 1.99 against
+# 1.77 / 2.98 against 1.87; 256 reads 2.03 against 1.95 / 3.03 against
+# 2.13; 384 reads 2.15 against 2.18 / 3.04 against 2.46; 512 reads 2.09
+# against 2.49 / 3.04 against 2.96; 1024 reads of S = 1024 0.76 against
+# 1.11 / 0.95 against 1.26.
 ROUTES = {128: ((4, 1),), 256: ((8, 1),), 512: ((16, 1), (4, 4))}
-SMALL_LAUNCH = 256
+SMALL_LAUNCH = 512
 MAX_READS_PER_BLOCK = 16      # one warp a read: reads (warps) a block
 
 
@@ -396,11 +399,11 @@ def packed_bytes(R: int, lanes: int) -> int:
 
 
 def _route(W, B, n_sm):
-    """How the row-scan kernels run a launch of ``B`` reads at band ``W``
-    on a card of ``n_sm`` SMs: ``(C, wpr, reads_per_block)``, computing
+    """How the NW kernels run a launch of ``B`` reads at band ``W`` on a
+    card of ``n_sm`` SMs: ``(C, wpr, reads_per_block)``, computing
     32 * C * wpr >= W lanes.  One warp a read (four at 512 lanes below
-    :data:`SMALL_LAUNCH` reads) and as many reads a block as spread the
-    launch over every SM (a power of two up to
+    :data:`SMALL_LAUNCH` reads) and as many reads a
+    block as spread the launch over every SM (a power of two up to
     :data:`MAX_READS_PER_BLOCK`).  Raises on a band no route takes."""
     if not (32 <= W <= 512 and W % 32 == 0):
         raise ValueError(f"the CUDA NW kernels take W in 32..512, "

@@ -24,6 +24,20 @@ The traceback walks one move at a time from (r_len, d_len), as
 tensors and launches its kernel for CUDA tensors (or raises); there is no
 fallback between the two.  Inputs follow the reference's contract:
 ``r_lens <= R`` and ``d_lens <= D``.
+
+The kernels run a thread on C band lanes and a read on WPR warps
+(32 * C * WPR lanes: 128, 256 or 512; the row-scan kernels' routes,
+``nw_rowscan._route`` picks by band width and launch size); a band of
+another width (32 to
+512 in steps of 32) runs on the next of these with its spare lanes
+masked, and code rows are padded to a multiple of four
+(``nw_rowscan._word_rows``).  The mapping and votes kernels keep two bits
+a direction in a global scratch of :func:`_per_read` bytes a read.  What
+the kernels do with bits has numpy mirrors here that the CPU tests hold
+to the plain versions: the band's step bits (:func:`diag_table`), the
+sliding code windows (:func:`code_windows`), and the packed diagonal with
+its walk (:func:`pack_dirs_diag`, :func:`packed_move`,
+:func:`mapping_from_packed`).
 """
 
 from __future__ import annotations
@@ -36,10 +50,16 @@ import torch
 from haslr_tpu_torch.kernels.nw_rowscan import (
     DIAG,
     LEFT,
+    MAX_READS_PER_BLOCK,
     NEG,
+    ROUTES,
     UP,
+    _route,
+    _sm_count,
+    _word_rows,
     chunked_plain,
     launch_chunked,
+    pack_dirs_row,
     takes_plain,
 )
 
@@ -80,8 +100,10 @@ def _checked_bases(R: int, D: int, W: int) -> np.ndarray:
 
 
 def _dp_plain(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
-              t_hi):
-    """Diagonals 0..t_hi of the DP; directions (t_hi+1, B, W) uint8."""
+              t_hi, rows=None):
+    """Diagonals 0..t_hi of the DP; directions (t_hi+1, B, W) uint8.  A
+    list given as ``rows`` takes ``(t, s1, up, left, diag)`` of every
+    diagonal, the neighbour scores as the step read them."""
     B, R = reads.shape
     D = drafts.shape[1]
     dev = reads.device
@@ -112,6 +134,8 @@ def _dp_plain(reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
             diag = h2p[:, s2 : s2 + W]
         else:
             diag = h2
+        if rows is not None:
+            rows.append((t, s1, up, left, diag))
         j = b + lanes
         i = t - j
         rb = reads_p[:, torch.clamp(i - 1, 0, R).long()]
@@ -250,9 +274,23 @@ def wavefront_votes_plain(reads, r_lens, drafts, d_lens, W, match,
 # --------------------------------------------------------------------------
 
 
+def diag_table(R: int, D: int, W: int) -> np.ndarray:
+    """What the kernels read of the band, one int32 array:
+    :func:`band_bases` (T + 1 entries, T = R + D), then T // 32 + 1 words
+    of step bits, bit ``t & 31`` of word ``t >> 5`` set where the band
+    advances a column between diagonals ``t - 1`` and ``t``."""
+    base = band_bases(R, D, W)
+    T = R + D
+    bits = np.zeros((T // 32 + 1) * 32, np.uint32)
+    bits[1 : T + 1] = np.diff(base)
+    words = (bits.reshape(-1, 32) << np.arange(32, dtype=np.uint32)).sum(
+        1, dtype=np.uint32)
+    return np.concatenate([base, words.view(np.int32)])
+
+
 @functools.lru_cache(maxsize=None)
 def _base_tensor(R, D, W, device):
-    return torch.from_numpy(band_bases(R, D, W)).to(device)
+    return torch.from_numpy(diag_table(R, D, W)).to(device)
 
 
 def _front(reads, r_lens, drafts, d_lens, W) -> bool:
@@ -261,15 +299,113 @@ def _front(reads, r_lens, drafts, d_lens, W) -> bool:
     return takes_plain(reads, r_lens, drafts, d_lens, W)
 
 
-def _per_read(reads, drafts, W) -> int:
+def _plain_bytes(reads, drafts, W) -> int:
+    """Bytes of one read's directions in the plain versions, a byte a
+    cell."""
     return (reads.shape[1] + drafts.shape[1] + 1) * W
 
 
-def _launch(name, reads, r_lens, drafts, d_lens, W, outs, extra):
+def _per_read(R: int, D: int, lanes: int) -> int:
+    """Bytes of one read's packed direction scratch in the kernels:
+    R + D + 1 diagonals of ``lanes`` cells, two bits a cell."""
+    return (R + D + 1) * (lanes // 4)
+
+
+def _launch(name, reads, r_lens, drafts, d_lens, W, outs, scores):
+    """Launch ``hx_{name}`` (mapping or votes) over the batch."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    C, wpr, rpb = _route(W, B, _sm_count(reads.device))
+    reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
     launch_chunked(name, LAUNCHES, reads, r_lens, drafts, d_lens, W,
-                   _base_tensor(reads.shape[1], drafts.shape[1], W,
-                                reads.device),
-                   _per_read(reads, drafts, W), outs, extra)
+                   _base_tensor(R, D, W, reads.device),
+                   _per_read(R, D, 32 * C * wpr), outs,
+                   (*scores, R, D, C, wpr, rpb))
+
+
+# numpy mirrors of what the kernels do with bits
+
+def pack_dirs_diag(row: np.ndarray) -> np.ndarray:
+    """One direction diagonal (lanes,) of values 0..2 as the mapping and
+    votes kernels store it: two bits a lane, 16 lanes a uint32 word
+    (:func:`~haslr_tpu_torch.kernels.nw_rowscan.pack_dirs_row`), each the
+    winning candidate's tag ``2 - direction`` (DIAG 2, UP 1, LEFT 0), the
+    low bits of the kernels' tagged score maximum."""
+    return pack_dirs_row(2 - np.asarray(row, np.int64))
+
+
+def packed_move(words, base, W, t_hi, i, j) -> int:
+    """The kernels' traceback move from ``(i, j) != (0, 0)`` on packed
+    diagonals ``words`` (t, lanes // 16) uint32 (:func:`pack_dirs_diag`
+    rows): 2 minus the cell's two bits, LEFT when it lies out of the band
+    or past diagonal ``t_hi``, then LEFT at i == 0, then UP at j == 0."""
+    t = i + j
+    d = LEFT
+    if t <= t_hi:
+        lane = j - int(base[t])
+        if 0 <= lane < W:
+            d = 2 - ((int(words[t, lane >> 4]) >> (2 * (lane & 15))) & 3)
+    if i == 0:
+        d = LEFT
+    if j == 0:
+        d = UP
+    return d
+
+
+def mapping_from_packed(words, base, W, r_len, d_len, R) -> np.ndarray:
+    """One read's (R,) int32 mapping by :func:`packed_move` from
+    ``(r_len, d_len)``, as the mapping kernel's walk writes it."""
+    out = np.full(R, -1, np.int32)
+    i, j = int(r_len), int(d_len)
+    t_hi = min(max(i + j, 0), len(words) - 1)
+    while (i > 0 or j > 0) and i <= R:
+        d = packed_move(words, base, W, t_hi, i, j)
+        if d == DIAG:
+            out[i - 1] = j - 1
+        elif d == UP:
+            out[i - 1] = -(j + 2)
+        i -= d != LEFT
+        j -= d != UP
+    return out
+
+
+def code_windows(read, draft, steps, C, g, t_hi):
+    """The sliding code windows of the thread that owns lanes ``C g ..
+    C g + C - 1``, as the kernels keep them: yields ``(t, read codes (C,),
+    draft codes (C,))`` for t = 1 .. t_hi.  ``read`` and ``draft`` are code
+    rows a multiple of four wide, ``steps`` the step-bit words of the
+    band's :func:`diag_table`.  Four bits a lane in one integer each; on
+    a diagonal where the band stays the read codes move
+    one lane up and lane 0 takes in the next code of the read, where it
+    advances the draft codes move one lane down and lane C - 1 takes in
+    the next code of the draft; codes come four a word, indices outside
+    the row read the pad code 4."""
+    rwords = np.ascontiguousarray(read, np.uint8).view(np.uint32)
+    dwords = np.ascontiguousarray(draft, np.uint8).view(np.uint32)
+    steps = np.asarray(steps).view(np.uint32)
+
+    def word(words, wi):
+        return int(words[wi]) if 0 <= wi < len(words) else 0x04040404
+
+    k0 = C * g
+    mask = (1 << (4 * C)) - 1
+    rpk = 0x4444444444444444 & mask
+    dpk = 0
+    for c in range(C):
+        jj = k0 + c - 1
+        dpk |= ((word(dwords, jj >> 2) >> (8 * (jj & 3))) & 15) << (4 * c)
+    nr, nd = -k0, k0 + C - 1
+    for t in range(1, t_hi + 1):
+        if (int(steps[t >> 5]) >> (t & 31)) & 1:
+            code = (word(dwords, nd >> 2) >> (8 * (nd & 3))) & 15
+            dpk = (dpk >> 4) | (code << (4 * (C - 1)))
+            nd += 1
+        else:
+            code = (word(rwords, nr >> 2) >> (8 * (nr & 3))) & 15
+            rpk = ((rpk << 4) | code) & mask
+            nr += 1
+        yield (t, np.array([(rpk >> (4 * c)) & 15 for c in range(C)]),
+               np.array([(dpk >> (4 * c)) & 15 for c in range(C)]))
 
 
 def wavefront_dirs(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
@@ -277,7 +413,8 @@ def wavefront_dirs(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
     tensors' device (row 0 zero).
 
     CPU tensors: :func:`wavefront_dirs_plain`.  CUDA tensors (uint8
-    codes, int32 lengths, contiguous): the ``hx_wavefront_dirs`` kernel.
+    codes, int32 lengths, contiguous): the ``hx_wavefront_dirs`` kernel,
+    by :func:`_route`.
     The output is the whole tensor, so the batch is not chunked."""
     if _front(reads, r_lens, drafts, d_lens, W):
         return wavefront_dirs_plain(reads, r_lens, drafts, d_lens, W,
@@ -286,12 +423,15 @@ def wavefront_dirs(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
 
     B, R = reads.shape
     D = drafts.shape[1]
+    C, wpr, rpb = _route(W, B, _sm_count(reads.device))
     dirs = torch.empty((R + D + 1, B, W), dtype=torch.uint8,
                        device=reads.device)
+    reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
     err = _build.lib()["hx_wavefront_dirs"](
         reads.data_ptr(), r_lens.data_ptr(), drafts.data_ptr(),
         d_lens.data_ptr(), _base_tensor(R, D, W, reads.device).data_ptr(),
-        dirs.data_ptr(), B, R, D, W, match, mismatch, gap,
+        dirs.data_ptr(), B, reads.shape[1], drafts.shape[1], W, match,
+        mismatch, gap, R, D, C, wpr, rpb,
         torch.cuda.current_stream(reads.device).cuda_stream,
     )
     if err != 0:
@@ -312,7 +452,7 @@ def wavefront_mapping(reads, r_lens, drafts, d_lens, W, match, mismatch,
         (mapping,) = chunked_plain(
             reads, r_lens, drafts, d_lens, W,
             lambda *a: (wavefront_mapping_plain(*a),),
-            (match, mismatch, gap), _per_read(reads, drafts, W),
+            (match, mismatch, gap), _plain_bytes(reads, drafts, W),
         )
         return mapping
     B, R = reads.shape
@@ -333,7 +473,7 @@ def wavefront_votes(reads, r_lens, drafts, d_lens, W, match, mismatch,
     if _front(reads, r_lens, drafts, d_lens, W):
         return chunked_plain(reads, r_lens, drafts, d_lens, W,
                              wavefront_votes_plain, (match, mismatch, gap),
-                             _per_read(reads, drafts, W))
+                             _plain_bytes(reads, drafts, W))
     B = reads.shape[0]
     D = drafts.shape[1]
     planes = torch.full((B, 3 * D + 256), 4, dtype=torch.uint8,

@@ -207,3 +207,226 @@ def test_wrappers_refuse_other_devices(entry):
           "votes": pwf.wavefront_votes}[entry]
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*meta, 128, 5, -4, -8)
+
+
+# --------------------------------------------------------------------------
+# numpy mirrors of what the CUDA kernels do with bits, held to the plain
+# versions; the route, the scratch size and the extension's launch sizes
+# --------------------------------------------------------------------------
+
+
+def _rect_batch(seed, B, R, D):
+    """A ``_batch``-style batch (ragged, out-of-gate and pad rows) with
+    code rows R and D wide."""
+    _ja, _ta, (reads, r_lens, drafts, d_lens) = _batch(seed, B, min(R, D),
+                                                       128)
+    reads = np.pad(reads, ((0, 0), (0, R - reads.shape[1])),
+                   constant_values=4)
+    drafts = np.pad(drafts, ((0, 0), (0, D - drafts.shape[1])),
+                    constant_values=4)
+    return reads, r_lens, drafts, d_lens
+
+
+@pytest.mark.parametrize("W", (128, 256, 512))
+def test_packed_walk_matches_plain_walk(W):
+    """The packed diagonal and the packed walk move (``tb_move``'s edge
+    rules on two bits a cell) give the mapping of ``_walk`` over the plain
+    directions, row for row, at the lanes of every route."""
+    B, S = 10, 2 * W
+    arrays = _batch(W + 1, B, S, W)[2]
+    ta = tuple(torch.from_numpy(a) for a in arrays)
+    dirs = pwf.wavefront_dirs_plain(*ta, W, 2, -4, -2).numpy()
+    want = pwf.wavefront_mapping_plain(*ta, W, 2, -4, -2).numpy()
+    base = pwf.band_bases(S, S, W)
+    for C, wpr in pwf.ROUTES[W]:
+        assert 32 * C * wpr == W
+    for b in range(B):
+        words = np.stack([pwf.pack_dirs_diag(row) for row in dirs[:, b, :]])
+        assert words.shape == (2 * S + 1, W // 16)
+        got = pwf.mapping_from_packed(words, base, W, arrays[1][b],
+                                      arrays[3][b], S)
+        np.testing.assert_array_equal(got, want[b], f"row {b}")
+
+
+def test_packed_walk_masked_band():
+    """A band of 96 lanes stored on 128: the spare lanes are never read."""
+    B, S, W, lanes = 6, 256, 96, 128
+    arrays = _batch(5, B, S, W)[2]
+    ta = tuple(torch.from_numpy(a) for a in arrays)
+    dirs = pwf.wavefront_dirs_plain(*ta, W, 2, -4, -2).numpy()
+    want = pwf.wavefront_mapping_plain(*ta, W, 2, -4, -2).numpy()
+    base = pwf.band_bases(S, S, W)
+    for b in range(B):
+        full = np.zeros((2 * S + 1, lanes), np.uint8)  # spare lanes: DIAG
+        full[:, :W] = dirs[:, b, :]
+        words = np.stack([pwf.pack_dirs_diag(row) for row in full])
+        got = pwf.mapping_from_packed(words, base, W, arrays[1][b],
+                                      arrays[3][b], S)
+        np.testing.assert_array_equal(got, want[b], f"row {b}")
+
+
+def test_packed_move_edge_rules():
+    """Out of band or past t_hi -> LEFT, then i == 0 -> LEFT, then
+    j == 0 -> UP, whatever the cell holds."""
+    W, S = 128, 256
+    base = pwf.band_bases(S, S, W)
+    words = np.stack([pwf.pack_dirs_diag(np.full(W, pnw.DIAG))] * (2 * S + 1))
+    assert pwf.packed_move(words, base, W, 2 * S, 40, 40) == pnw.DIAG
+    assert pwf.packed_move(words, base, W, 60, 40, 40) == pnw.LEFT
+    assert pwf.packed_move(words, base, W, 2 * S, 10, 200) == pnw.LEFT
+    assert pwf.packed_move(words, base, W, 2 * S, 0, 7) == pnw.LEFT
+    assert pwf.packed_move(words, base, W, 2 * S, 7, 0) == pnw.UP
+    ups = np.stack([pwf.pack_dirs_diag(np.full(W, pnw.UP))] * (2 * S + 1))
+    assert pwf.packed_move(ups, base, W, 2 * S, 40, 40) == pnw.UP
+
+
+@pytest.mark.parametrize("R,D,W,C", [(256, 256, 128, 4), (200, 190, 96, 4),
+                                     (301, 299, 32, 4), (320, 256, 256, 8),
+                                     (300, 512, 512, 16)])
+def test_code_windows_match_gather(R, D, W, C):
+    """The sliding code windows deliver ``reads_p[clamp(i - 1)]`` and
+    ``drafts_p[clamp(j - 1)]`` of the plain DP on every lane with i >= 1
+    and j >= 1, for R != D and row widths that are no multiples of four."""
+    reads, _rl, drafts, _dl = _rect_batch(R + W, 4, R, D)
+    table = pwf.diag_table(R, D, W)
+    base, steps = table[: R + D + 1], table[R + D + 1 :]
+    read, draft = reads[2], drafts[2]
+    read_w = np.pad(read, (0, -R % 4), constant_values=4)
+    draft_w = np.pad(draft, (0, -D % 4), constant_values=4)
+    reads_p = np.concatenate([read, [4]])
+    drafts_p = np.concatenate([draft, [4]])
+    checked = 0
+    for g in range(32):
+        for t, rc, dc in pwf.code_windows(read_w, draft_w, steps, C, g,
+                                          R + D):
+            j = base[t] + C * g + np.arange(C)
+            i = t - j
+            on = (i >= 1) & (j >= 1)
+            np.testing.assert_array_equal(
+                rc[on], reads_p[np.clip(i - 1, 0, R)][on], f"read {g} {t}")
+            np.testing.assert_array_equal(
+                dc[on], drafts_p[np.clip(j - 1, 0, D)][on], f"draft {g} {t}")
+            checked += int(on.sum())
+    assert checked > (R + D) * W // 2
+
+
+@pytest.mark.parametrize("R,D,W", [(128, 128, 128), (512, 512, 128),
+                                   (2048, 2048, 256), (301, 299, 32),
+                                   (300, 4096, 512), (4096, 300, 512)])
+def test_diag_table_holds_bases_then_step_bits(R, D, W):
+    T = R + D
+    table = pwf.diag_table(R, D, W)
+    base = pwf.band_bases(R, D, W)
+    assert table.dtype == np.int32 and len(table) == T + 1 + T // 32 + 1
+    np.testing.assert_array_equal(table[: T + 1], base)
+    words = table[T + 1 :].view(np.uint32)
+    t = np.arange(1, T + 1)
+    bits = (words[t >> 5] >> (t & 31).astype(np.uint32)) & 1
+    np.testing.assert_array_equal(bits, np.diff(base))
+    assert int(words[0]) & 1 == 0
+    # stepping down from base[T] by the bits gives every base back
+    np.testing.assert_array_equal(
+        base[T] - np.concatenate([[0], np.cumsum(bits[::-1])]), base[::-1])
+
+
+@pytest.mark.parametrize("R,D,W", [(256, 256, 128), (300, 256, 128),
+                                   (256, 300, 96)])
+def test_diag_is_left_or_up_of_the_step_before(R, D, W):
+    """diag(t) = s1(t) ? up(t - 1) : left(t - 1) on the plain DP's rows:
+    the identity that saves the kernels an exchange of H[t-2]."""
+    reads, r_lens, drafts, d_lens = _rect_batch(R + 1, 8, R, D)
+    ta = tuple(torch.from_numpy(a) for a in (reads, r_lens, drafts, d_lens))
+    rows = []
+    pwf._dp_plain(*ta, W, 5, -4, -8, R + D, rows=rows)
+    assert len(rows) == R + D
+    seen = set()
+    for (_t0, _s0, up0, left0, _d0), (t, s1, _up, _left, diag) in zip(
+            rows, rows[1:]):
+        assert torch.equal(diag, up0 if s1 else left0), t
+        seen.add(s1)
+    assert seen == {0, 1}
+
+
+@pytest.mark.parametrize("W,B,want", [
+    (128, 64, (4, 1, 1)), (128, 2048, (4, 1, 16)), (96, 600, (4, 1, 8)),
+    (256, 1024, (8, 1, 8)), (160, 100, (8, 1, 1)),
+    (512, 32, (4, 4, 1)), (512, 511, (4, 4, 1)), (512, 512, (16, 1, 4)),
+    (480, 4096, (16, 1, 16)), (320, 16, (4, 4, 1)),
+])
+def test_wavefront_route_by_width_and_launch_size(W, B, want):
+    C, wpr, rpb = pwf._route(W, B, 132)
+    assert (C, wpr, rpb) == want
+    assert 32 * C * wpr >= W
+    assert wpr == 1 or rpb == 1
+
+
+def test_wavefront_route_covers_every_band_and_refuses_the_rest():
+    taken = set()
+    for W in range(32, 513, 32):
+        for B in (1, 100, 511, 512, 5000):
+            C, wpr, rpb = pwf._route(W, B, 132)
+            lanes = 32 * C * wpr
+            assert lanes >= W and lanes in pwf.ROUTES
+            assert (C, wpr) in pwf.ROUTES[lanes]
+            assert 1 <= rpb <= pwf.MAX_READS_PER_BLOCK
+            taken.add((C, wpr))
+    assert taken == {r for routes in pwf.ROUTES.values() for r in routes}
+    for W in (0, 16, 100, 544, 1024):
+        with pytest.raises(ValueError, match="W in 32..512"):
+            pwf._route(W, 64, 132)
+
+
+@pytest.mark.parametrize("R,D,lanes", [(512, 512, 128), (2048, 2048, 256),
+                                       (16384, 16384, 512), (510, 509, 128)])
+def test_scratch_is_two_bits_a_cell(R, D, lanes):
+    assert pwf._per_read(R, D, lanes) == (R + D + 1) * lanes // 4
+    assert 4 * pwf._per_read(R, D, lanes) == (R + D + 1) * lanes
+    if (R, D, lanes) == (512, 512, 128):
+        assert pwf._per_read(R, D, lanes) == 32800
+
+
+def test_extension_chunks_alike_under_both_engines(monkeypatch):
+    """Under the wavefront engine ``batch_align_segments`` hands
+    ``align_mapping_device_raw`` the same chunk sizes it hands
+    ``cigar_runs_device_raw`` under the row-scan engine: 40 segments of
+    the S = 4096 bucket go out as one launch (the reference's 256 MB of
+    direction cells allow 32; two bits a cell allow 64).  Its results
+    equal the JAX package's."""
+    from haslr_tpu.aligner import extend as ext
+    from haslr_tpu_torch.aligner import extend as pext
+
+    from test_torch_aligner import _segments
+
+    class _Recorded(Exception):
+        pass
+
+    calls = {"rowscan": [], "wavefront": []}
+
+    def spy(engine):
+        def record(reads, r_lens, drafts, d_lens, W, *a, **kw):
+            calls[engine].append((reads.shape, W, int(r_lens.sum())))
+            raise _Recorded
+        return record
+
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, 4, 3000).astype(np.uint8)
+    long_segs = [(t[: 2900 + k], t[k:]) for k in range(40)]
+    with monkeypatch.context() as m:
+        m.setattr(pext.rsk, "cigar_runs_device_raw", spy("rowscan"))
+        m.setattr(pext.nw, "align_mapping_device_raw", spy("wavefront"))
+        for engine in ("rowscan", "wavefront"):
+            m.setattr(pnw, "ENGINE", engine)
+            with pytest.raises(_Recorded):
+                pext.batch_align_segments(long_segs, device="cpu")
+    assert calls["wavefront"] == calls["rowscan"]
+    assert [c[:2] for c in calls["wavefront"]] == [((40, 4096), 512)]
+
+    monkeypatch.setattr(nw, "ENGINE", "wavefront")
+    monkeypatch.setattr(pnw, "ENGINE", "wavefront")
+    segs = _segments()
+    ref = ext.batch_align_segments(segs)
+    got = pext.batch_align_segments(segs, device="cpu")
+    for i, ((ro, rl, rn), (go, gl, gn)) in enumerate(zip(ref, got)):
+        np.testing.assert_array_equal(ro, go, f"ops {i}")
+        np.testing.assert_array_equal(rl, gl, f"lens {i}")
+        assert rn == gn, i
