@@ -6,11 +6,12 @@ Phases, one printed line each (any failure raises):
 2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (one nvcc per
    source, in parallel, sm_90a);
 3. each of the six kernels against its plain PyTorch version on the
-   card, exact, at the shapes its callers give it; the three row-scan
-   kernels again at every route of their design (lanes a thread, warps a
-   read: W = 128, 256, and 512 at launches on either side of the small-
-   launch limit; ragged, empty, out-of-gate and pad rows, the
-   MAXR-overflow batch, and S=16384/W=512 at 32 reads) and at bands and
+   card, exact: the two vote-plane kernels down to the vote tables at
+   the consensus buckets' shapes; the three row-scan kernels at every
+   route of their design (lanes a thread, warps a read: W = 128, 256,
+   and 512 at launches on either side of the small-launch limit;
+   ragged, empty, out-of-gate and pad rows, the MAXR-overflow batch, and
+   the CIGAR-run kernel at S=16384/W=512 on 32 reads) and at bands and
    row widths off the main path (W = 32 to 480, R and D no multiples of
    four); the three wavefront kernels likewise at every route of theirs,
    at masked bands, at R != D and at odd row widths, and the mapping
@@ -38,7 +39,22 @@ then the same paths under the wavefront engine (``nw.ENGINE =
 10. the 4.6 Mb pipeline resumed from phase 6's output without its PAF and
     assembly, so that the aligner and the assembler run again: stage
     times, contigs, NG50, recall, launches, and whether ``asm.final.fa``
-    equals phase 6's.
+    equals phase 6's;
+
+then, under the row-scan engine again, on a ``dp`` mesh of two shards
+(``make_mesh(2)`` where two cards are visible, else
+``Mesh(["cuda:0", "cuda:0"])``: one card split in two, which proves the
+split and the summed tables exact with the kernels on the card, and
+neither a launch on a second card nor a speed-up):
+
+11. the consensus workload through the mesh, equal to phase 5's output on
+    all 4096 windows (windows/s, B1's launches); the 4.6 Mb pipeline
+    through ``run_pipeline(..., mesh=...)`` into a new directory, its SR
+    contigs and ``asm.final.fa`` equal to phase 6's (stage times,
+    launches by kernel and bucket); two processes under gloo, both on
+    ``cuda:0``, mapping host shards of a simulated 200 kb genome, their
+    PAF lines equal to one process's; and the standalone
+    ``haslr_assemble`` on the golden inputs, equal to phase 4's bytes.
 
 The bound of a kernel is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its int32 operations on this
@@ -281,10 +297,11 @@ def _max_err(pairs):
     return worst
 
 
-def check_shape(dev, R, D, W, B, seed, overflow=False):
-    """B1, B2 and B3 on the card at one shape against their plain
-    versions, every row and every slot, exact; returns the (C, WPR) route
-    the wrappers took."""
+def check_shape(dev, R, D, W, B, seed, overflow=False, only=None):
+    """B1, B2 and B3 (or those in ``only``) on the card at one shape
+    against their plain versions, every row and every slot, exact;
+    returns the largest difference (0, or it raises) and the (C, WPR)
+    route the wrappers took."""
     import numpy as np
 
     from haslr_tpu_torch.kernels import nw_rowscan as rs
@@ -296,27 +313,32 @@ def check_shape(dev, R, D, W, B, seed, overflow=False):
     r_lens[2] = R + 1  # longer than its row: a full DP and no walk
     args = _to(dev, reads, r_lens, drafts, d_lens)
     maxr = 64 if overflow else max(128, R // 4)
-    runs_p, n_p = rs.rowscan_cigar_plain(*args, W, 2, -4, -2, maxr)
-    if overflow and not bool((n_p > maxr).any()):
-        raise AssertionError("overflow batch did not overflow MAXR")
-    planes_p, stats_p = rs.rowscan_votes_plain(*args, W, 5, -4, -8)
-    map_p = rs.rowscan_mapping_plain(*args, W, 5, -4, -8)
-    runs_k, n_k = rs.rowscan_cigar(*args, W, 2, -4, -2, maxr)
-    planes_k, stats_k = rs.rowscan_votes(*args, W, 5, -4, -8)
-    map_k = rs.rowscan_mapping(*args, W, 5, -4, -8)
     what = f"R={R} D={D} W={W} B={B}"
-    _max_err([(f"n_runs {what}", n_k, n_p), (f"runs {what}", runs_k, runs_p),
-              (f"planes {what}", planes_k, planes_p),
-              (f"stats {what}", stats_k, stats_p),
-              (f"mapping {what}", map_k, map_p)])
-    return rs._route(W, B, rs._sm_count(dev))[:2]
+    pairs = []
+    if only is None or "rowscan_cigar" in only:
+        runs_p, n_p = rs.rowscan_cigar_plain(*args, W, 2, -4, -2, maxr)
+        if overflow and not bool((n_p > maxr).any()):
+            raise AssertionError("overflow batch did not overflow MAXR")
+        runs_k, n_k = rs.rowscan_cigar(*args, W, 2, -4, -2, maxr)
+        pairs += [(f"n_runs {what}", n_k, n_p),
+                  (f"runs {what}", runs_k, runs_p)]
+    if only is None or "rowscan_votes" in only:
+        planes_p, stats_p = rs.rowscan_votes_plain(*args, W, 5, -4, -8)
+        planes_k, stats_k = rs.rowscan_votes(*args, W, 5, -4, -8)
+        pairs += [(f"planes {what}", planes_k, planes_p),
+                  (f"stats {what}", stats_k, stats_p)]
+    if only is None or "rowscan_mapping" in only:
+        pairs.append((f"mapping {what}",
+                      rs.rowscan_mapping(*args, W, 5, -4, -8),
+                      rs.rowscan_mapping_plain(*args, W, 5, -4, -8)))
+    return (_max_err(pairs), *rs._route(W, B, rs._sm_count(dev))[:2])
 
 
 def check_wavefront_shape(dev, R, D, W, B, seed, only=None):
     """B4, B5 and B6 (or those in ``only``) on the card at one shape
     against their plain versions: planes, stats and mapping on every row,
-    B6 on every cell, exact; returns the (C, WPR) route the wrappers
-    took."""
+    B6 on every cell, exact; returns the largest difference (0, or it
+    raises) and the (C, WPR) route the wrappers took."""
     import numpy as np
 
     from haslr_tpu_torch.kernels import nw_rowscan as rs
@@ -344,8 +366,7 @@ def check_wavefront_shape(dev, R, D, W, B, seed, only=None):
         pairs.append((f"dirs {what}",
                       wf.wavefront_dirs(*args, W, 5, -4, -8),
                       wf.wavefront_dirs_plain(*args, W, 5, -4, -8)))
-    _max_err(pairs)
-    return wf._route(W, B, rs._sm_count(dev))[:2]
+    return (_max_err(pairs), *wf._route(W, B, rs._sm_count(dev))[:2])
 
 
 def check_votes(dev, S, W, B, seed, engine="rowscan"):
@@ -380,24 +401,6 @@ def check_votes(dev, S, W, B, seed, engine="rowscan"):
     )
 
 
-def check_cigar(dev, S, W, B, seed, maxr=None, overflow=False):
-    """B2 on the card vs its plain version: run counts and run slots."""
-    import numpy as np
-
-    from haslr_tpu_torch.kernels import nw_rowscan as rs
-
-    rng = np.random.default_rng(seed)
-    batch = overflow_batch(rng, B, S) if overflow else \
-        mutated_batch(rng, B, S)
-    args = _to(dev, *batch)
-    maxr = maxr or max(128, S // 4)
-    runs_k, n_k = rs.rowscan_cigar(*args, W, 2, -4, -2, maxr)
-    runs_p, n_p = rs.rowscan_cigar_plain(*args, W, 2, -4, -2, maxr)
-    if overflow and not bool((n_k > maxr).any()):
-        raise AssertionError("overflow batch did not overflow MAXR")
-    return _max_err([("n_runs", n_k, n_p), ("runs", runs_k, runs_p)])
-
-
 def _plain_pairs():
     """kernel name -> (wrapper, plain version, scores) for B3, B5, B6."""
     from haslr_tpu_torch.kernels import nw_rowscan as rs
@@ -413,24 +416,12 @@ def _plain_pairs():
     }
 
 
-def check_plain(dev, name, S, W, B, seed):
-    """B3, B5 or B6 on the card vs its plain version, every row (in and
-    out of the gate, pad rows) and, for B6, every cell."""
-    import numpy as np
-
-    kern, plain, scores = _plain_pairs()[name]
-    rng = np.random.default_rng(seed)
-    args = _to(dev, *mutated_batch(rng, B, S))
-    return _max_err([(name, kern(*args, W, *scores),
-                      plain(*args, W, *scores))])
-
-
-def time_pair(dev, S, W, B, seed, only=None, plain_once=False):
+def time_pair(dev, S, W, B, seed, only=None, with_plain=True):
     """Per kernel (all six, or those in ``only``) at one shape: kernel ms
-    and plain ms (CUDA events around warm launches, the two versions
-    interleaved; ``plain_once``: the plain version a single cold call,
-    for shapes where it takes seconds), the bound on this batch and the
-    share of it reached."""
+    (CUDA events around 5 warm launches, best of two turns) and plain ms
+    (one warm call; ``with_plain=False`` leaves it out, for shapes where
+    it takes tens of seconds), the bound on this batch and the share of
+    it reached."""
     import numpy as np
     import torch
 
@@ -466,10 +457,10 @@ def time_pair(dev, S, W, B, seed, only=None, plain_once=False):
     ):
         if only is not None and name not in only:
             continue
-        p1 = ms(lambda: plain(*args, W, *extra), 1, warm=not plain_once)
+        plain_ms = ms(lambda: plain(*args, W, *extra), 1) if with_plain \
+            else "not timed"
         k1 = ms(lambda: kern(*args, W, *extra), 5)
         k2 = ms(lambda: kern(*args, W, *extra), 5)
-        p2 = p1 if plain_once else ms(lambda: plain(*args, W, *extra), 1)
         res = kern(*args, W, *extra)
         res = res if isinstance(res, tuple) else (res,)
         bound_ms, bound_by = kernel_bound(
@@ -479,7 +470,7 @@ def time_pair(dev, S, W, B, seed, only=None, plain_once=False):
         )
         del res
         out[name] = {
-            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "ms": min(k1, k2), "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / min(k1, k2),
             "mean_r_len": float(args[1].float().mean()),
@@ -715,9 +706,10 @@ def _data_paths(scale):
     return paths, time.time() - t0
 
 
-def _run_cli(dev, scale, threads, out, log_path):
-    """The pipeline CLI on ``out``; returns its record (stage times,
-    contigs, NG50, recall, the launches of that run)."""
+def _run_cli(dev, scale, threads, out, log_path, mesh=None):
+    """The pipeline CLI on ``out`` (``run_pipeline`` over ``mesh`` when
+    one is given); returns its record (stage times, contigs, NG50,
+    recall, the launches of that run)."""
     from haslr_tpu_torch.aligner import map as amap
     from haslr_tpu_torch.cli import haslr as cli
 
@@ -728,7 +720,11 @@ def _run_cli(dev, scale, threads, out, log_path):
     t0 = time.time()
     with launch_log() as by_bucket, open(log_path, "w") as log, \
             contextlib.redirect_stdout(log):
-        rc = cli.main(argv)
+        if mesh is None:
+            rc = cli.main(argv)
+        else:
+            rc = 0
+            cli.run_pipeline(cli.parse_options(argv)[0], dev, mesh=mesh)
         wall = time.time() - t0
         counts = launches()
     if rc != 0:
@@ -802,6 +798,168 @@ def phase_e2e_wavefront(dev, scale, threads, tmp):
     return rec
 
 
+def phase_mesh_consensus(mesh, windows, rowscan_out):
+    """The consensus workload through ``mesh``: windows/s, B1's launches
+    (each shard launches its own), and the output equal to phase 5's on
+    every window."""
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    reset_launches()
+    with launch_log() as by_bucket:
+        t0 = time.time()
+        out = batched_consensus(windows, mesh=mesh)
+        dt = time.time() - t0
+    n_b1 = launches()["rowscan_votes"]
+    n_diff = sum(a != b for a, b in zip(out, rowscan_out))
+    if n_diff or len(out) != len(rowscan_out):
+        raise AssertionError(f"mesh consensus differs from phase 5's on "
+                             f"{n_diff} of {len(windows)} windows")
+    if n_b1 < mesh.size:
+        raise AssertionError(f"mesh consensus launched B1 {n_b1} times")
+    return {"windows": len(windows), "windows_per_s": len(windows) / dt,
+            "seconds": dt, "rowscan_votes_launches": n_b1,
+            "launches_by_bucket": by_bucket,
+            "windows_equal_to_phase_5": len(windows)}
+
+
+def phase_mesh_e2e(dev, mesh, scale, threads, tmp):
+    """The 4.6 Mb pipeline through ``run_pipeline(..., mesh=mesh)`` into
+    a new directory: its SR contigs and final assembly equal phase 6's
+    byte for byte."""
+    rec = _run_cli(dev, scale, threads, os.path.join(tmp, "e2e_mesh"),
+                   os.path.join(tmp, "e2e_mesh.log"), mesh=mesh)
+    for name in ("sr_k49_a3.contigs.fa", "asm.final.fa"):
+        paths = [final_fasta(os.path.join(tmp, d)) if name == "asm.final.fa"
+                 else os.path.join(tmp, d, name) for d in ("e2e", "e2e_mesh")]
+        with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"mesh pipeline: {name} differs from "
+                                     "phase 6's")
+    rec["identical_to_phase_6"] = ["sr_k49_a3.contigs.fa", "asm.final.fa"]
+    return rec
+
+
+# one rank of the two-process mapping: joins the gloo group and maps its
+# host shard of the reads on the device named
+_RANK = r"""
+import sys
+
+import torch.distributed as td
+
+from haslr_tpu_torch import dist
+from haslr_tpu_torch.aligner.map import map_reads
+
+coord, rank, ctg, lr, out, device = sys.argv[1:7]
+dist.initialize(coord, 2, int(rank), timeout_s=300)
+print(map_reads(ctg, lr, out, host_shard=dist.host_shard(), device=device))
+td.destroy_process_group()
+"""
+
+
+def mapping_data(d, genome_len=200_000, seed=17):
+    """Contigs (2 kb every 1.5 kb of a simulated genome with repeats) and
+    5x long reads at 6 % error in ``d``, as the JAX package's
+    multi-process test makes them; returns (contigs, reads) paths."""
+    import numpy as np
+
+    from haslr_tpu_torch.testutil import simulate
+
+    ctg, lr = os.path.join(d, "ctg.fa"), os.path.join(d, "lr.fa")
+    rng = np.random.default_rng(seed)
+    genome = simulate.genome_with_repeats(
+        rng, genome_len, n_families=4, copies_per_family=3, repeat_len=300)
+    with open(ctg, "w") as fp:
+        for i in range(0, len(genome) - 1500, 1500):
+            fp.write(f">{i // 1500}\n{genome[i:i + 2000]}\n")
+    with open(lr, "w") as fp:
+        for r in simulate.make_reads(rng, genome, coverage=5.0,
+                                     mean_len=6000, error_rate=0.06):
+            fp.write(f">{r.rid}\n{r.seq}\n")
+    return ctg, lr
+
+
+def phase_two_process_mapping(tmp, device="cuda:0", genome_len=200_000):
+    """Two processes under gloo, each mapping its host shard of the reads
+    of a simulated genome (:func:`mapping_data`) on ``device``; their PAF
+    lines, together, equal one process's.  The ranks are ended here
+    whatever happens."""
+    import socket
+
+    from haslr_tpu_torch.aligner.map import map_reads
+
+    d = os.path.join(tmp, "two_process")
+    os.makedirs(d)
+    ctg, lr = mapping_data(d, genome_len)
+    t0 = time.time()
+    single = os.path.join(d, "single.paf")
+    n_single = map_reads(ctg, lr, single, device=device)
+    single_s = time.time() - t0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    shards = [os.path.join(d, f"shard{i}.paf") for i in range(2)]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, coord, str(i), ctg, lr, shards[i],
+         device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+    ) for i in range(2)]
+    try:
+        said = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_out, err) in zip(procs, said):
+        if p.returncode != 0:
+            raise AssertionError(f"mapping rank failed (exit "
+                                 f"{p.returncode}): {err[-2000:]}")
+    ranks_s = time.time() - t0
+    with open(single) as f:
+        want = sorted(f.readlines())
+    got = []
+    for s_path in shards:
+        with open(s_path) as f:
+            got.extend(f.readlines())
+    if sorted(got) != want or not want:
+        raise AssertionError("two-process PAF != one process's")
+    return {"genome_bp": genome_len, "records": n_single,
+            "records_by_rank": [int(out.split()[-1]) for out, _ in said],
+            "single_process_s": single_s, "two_ranks_s": ranks_s,
+            "paf_lines_equal": len(want)}
+
+
+def phase_haslr_assemble(tmp, device="cuda"):
+    """The standalone ``haslr_assemble`` on the golden inputs (left in
+    ``tmp`` by phase 4), on ``device``: the pinned device-engine
+    bytes."""
+    from haslr_tpu_torch.cli import haslr_assemble
+
+    out = os.path.join(tmp, "haslr_assemble")
+    t0 = time.time()
+    with open(os.path.join(tmp, "haslr_assemble.log"), "w") as log, \
+            contextlib.redirect_stderr(log):
+        rc = haslr_assemble.main([
+            "-c", os.path.join(tmp, "contigs.fa"),
+            "-l", os.path.join(tmp, "lr.fa"),
+            "-m", os.path.join(tmp, "map.paf"), "-d", out,
+            "--device", device,
+        ])
+    if rc != 0:
+        raise AssertionError(f"haslr_assemble exit code {rc}")
+    gold = os.path.join(ROOT, "tests", "golden", "expected")
+    for name in ("asm.final.fa", "asm.final.ann"):
+        with open(f"{gold}/tpu.{name}", "rb") as f, \
+                open(f"{out}/{name}", "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"haslr_assemble {name} != golden")
+    return {"identical": ["tpu.asm.final.fa", "tpu.asm.final.ann"],
+            "seconds": time.time() - t0}
+
+
 def _check_e2e(rec, names, what):
     if rec["n_contigs"] != 1 or rec["kmer31_recall"] < 0.999:
         raise AssertionError(
@@ -838,49 +996,50 @@ def main():
         errs[name] = max(errs[name], err)
 
     t0 = time.time()
+    # the vote planes down to the vote tables; the other outputs of every
+    # kernel are held in 3a and 3c
     for S, W in ((512, 128), (1024, 128), (2048, 256), (4096, 512)):
         check("rowscan_votes", check_votes(dev, S, W, 64, S))
-        check("rowscan_mapping",
-              check_plain(dev, "rowscan_mapping", S, W, 64, S + 3))
-    for S, W, B in ((256, 128, 64), (1024, 128, 64), (2048, 256, 32),
-                    (8192, 512, 16)):
-        check("rowscan_cigar", check_cigar(dev, S, W, B, S + 1))
-    check("rowscan_cigar",
-          check_cigar(dev, 256, 128, 32, 23, maxr=64, overflow=True))
     for S, W, B in ((512, 128, 64), (1024, 128, 64), (2048, 256, 32),
-                    (8192, 512, 16)):
+                    (4096, 512, 16)):
         check("wavefront_votes",
               check_votes(dev, S, W, B, S + 4, "wavefront"))
-        check("wavefront_mapping",
-              check_plain(dev, "wavefront_mapping", S, W, B, S + 5))
-    for S in (256, 1024):
-        check("wavefront_dirs",
-              check_plain(dev, "wavefront_dirs", S, 128, 64, S + 6))
-    # every route of the row-scan design, (C, WPR) by W and by B on either
-    # side of the small-launch limit; then bands and row widths that run
-    # masked or padded
+    # the extension's S=256 bucket at its own MAXR; every route of the
+    # row-scan design, (C, WPR) by W and by B on either side of the
+    # small-launch limit; then bands and row widths that run masked or
+    # padded
     route_shapes = (
+        (256, 256, 128, 64),
         (512, 512, 128, 64), (1024, 1024, 128, 64), (2048, 2048, 256, 32),
         (1024, 1024, 512, 24), (1024, 1024, 512, 520),
         (4096, 4096, 512, 16), (2048, 2048, 512, 256),
-        (16384, 16384, 512, 32),
         (512, 512, 32, 64), (512, 512, 96, 64), (1024, 1024, 160, 32),
         (1024, 1024, 480, 16), (1024, 1024, 320, 520),
         (510, 510, 128, 64), (510, 509, 96, 64), (301, 299, 32, 64),
         (2047, 2045, 256, 32), (1022, 1021, 512, 16),
     )
+    rowscan = ("rowscan_votes", "rowscan_cigar", "rowscan_mapping")
     t_routes = time.time()
-    took = [[R, D, W, B, *check_shape(dev, R, D, W, B, R + 11)]
-            for R, D, W, B in route_shapes]
-    took.append([256, 256, 128, 32,
-                 *check_shape(dev, 256, 256, 128, 32, 23, overflow=True),
-                 "MAXR overflow"])
+    took = []
+    # then the MAXR-overflow batch, and the extension's longest bucket
+    # through its kernel only (the plain versions walk 16,384 rows each)
+    for R, D, W, B, *tag in (*route_shapes,
+                             (256, 256, 128, 32, "MAXR overflow"),
+                             (16384, 16384, 512, 32, "CIGAR runs only")):
+        only = ("rowscan_cigar",) if tag[:1] == ["CIGAR runs only"] \
+            else rowscan
+        overflow = tag[:1] == ["MAXR overflow"]
+        err, C, wpr = check_shape(dev, R, D, W, B, 23 if overflow else R + 11,
+                                  overflow=overflow, only=only)
+        for name in only:
+            check(name, err)
+        took.append([R, D, W, B, C, wpr, *tag])
     want = {(4, 1), (8, 1), (16, 1), (4, 4)}
     if {(C, wpr) for _R, _D, _W, _B, C, wpr, *_ in took} != want:
         raise AssertionError(f"phase 3a did not take every route: {took}")
     _line("3a row-scan routes == plain", tolerance=TOL,
-          kernels=["rowscan_votes", "rowscan_cigar", "rowscan_mapping"],
-          shapes_R_D_W_B_C_WPR=took, max_abs_err=0,
+          kernels=list(rowscan), shapes_R_D_W_B_C_WPR=took,
+          max_abs_err={k: errs[k] for k in rowscan},
           seconds=time.time() - t_routes)
     # every route of the wavefront design, (C, WPR) by W and by B on either
     # side of the small-launch limit; masked bands; R != D and row widths
@@ -893,35 +1052,35 @@ def main():
         (510, 509, 128, 64), (301, 299, 32, 64), (2047, 2045, 256, 32),
         (1022, 1021, 512, 16), (600, 512, 128, 32), (512, 600, 128, 32),
     )
+    wavefront = ("wavefront_votes", "wavefront_mapping", "wavefront_dirs")
     t_routes = time.time()
-    took = [[R, D, W, B, *check_wavefront_shape(dev, R, D, W, B, R + 13)]
-            for R, D, W, B in wf_shapes]
-    took.append([16384, 16384, 512, 4,
-                 *check_wavefront_shape(dev, 16384, 16384, 512, 4, 29,
-                                        only=("wavefront_mapping",)),
-                 "mapping only"])
+    took = []
+    for R, D, W, B, *tag in (*wf_shapes,
+                             (16384, 16384, 512, 4, "mapping only")):
+        only = ("wavefront_mapping",) if tag else wavefront
+        err, C, wpr = check_wavefront_shape(dev, R, D, W, B,
+                                            29 if tag else R + 13, only)
+        for name in only:
+            check(name, err)
+        took.append([R, D, W, B, C, wpr, *tag])
     if {(C, wpr) for _R, _D, _W, _B, C, wpr, *_ in took} != want:
         raise AssertionError(f"phase 3c did not take every route: {took}")
     _line("3c wavefront routes == plain", tolerance=TOL,
-          kernels=["wavefront_votes", "wavefront_mapping", "wavefront_dirs"],
-          shapes_R_D_W_B_C_WPR=took, max_abs_err=0,
+          kernels=list(wavefront), shapes_R_D_W_B_C_WPR=took,
+          max_abs_err={k: errs[k] for k in wavefront},
           seconds=time.time() - t_routes)
     times = {S: time_pair(dev, S, 128, 2048, S + 2) for S in (512, 1024)}
     big = time_pair(dev, 16384, 512, 32, 16386,
                     only=("rowscan_cigar", "wavefront_mapping"),
-                    plain_once=True)
+                    with_plain=False)
     for name in KERNELS:
         _line("3b time and bound", kernel=name, card=smi,
               **{f"B2048_S{S}_W128": t[name] for S, t in times.items()},
               **({"B32_S16384_W512": big[name]} if name in big else {}))
     _line("3 kernel == plain", tolerance=TOL,
-          votes_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
-          cigar_shapes="S,W = 256,128 1024,128 2048,256 8192,512 "
-                       "+ MAXR overflow",
-          rowscan_mapping_shapes="S,W = 512,128 1024,128 2048,256 4096,512",
-          wavefront_votes_mapping_shapes="S,W = 512,128 1024,128 2048,256 "
-                                         "8192,512",
-          wavefront_dirs_shapes="S,W = 256,128 1024,128",
+          vote_tables_shapes="B1: S,W = 512,128 1024,128 2048,256 4096,512;"
+                             " B4: 512,128 1024,128 2048,256 4096,512",
+          other_outputs="every shape of 3a and 3c",
           max_abs_err=errs, seconds=time.time() - t0,
           ms_kernel_plain_B2048={
               f"S{S}_W128": {k: {"kernel_ms": v["ms"],
@@ -975,6 +1134,28 @@ def main():
         _check_e2e(rec_wf, ("wavefront_votes", "wavefront_mapping"),
                    "end to end under the wavefront engine")
         path_launches["e2e_wf"] = rec_wf["launches"]
+
+        from haslr_tpu_torch.dist.mesh import Mesh, make_mesh
+
+        n_cards = torch.cuda.device_count()
+        mesh = make_mesh(2) if n_cards >= 2 else Mesh(["cuda:0", "cuda:0"])
+        proves = (
+            "the split and the summed vote tables exact with the kernels "
+            "on the card; a one-card mesh shows neither a launch on a "
+            "second card nor a speed-up" if len(set(mesh.devices)) == 1
+            else "the split, the summed tables and launches on two cards")
+        _line("11 mesh", mesh=[str(d) for d in mesh.devices],
+              distinct_cards=len(set(mesh.devices)), visible_cards=n_cards,
+              proves=proves)
+        _line("11a mesh consensus", card=smi,
+              **phase_mesh_consensus(mesh, windows, rowscan_out))
+        rec_mesh = phase_mesh_e2e(dev, mesh, E2E_SCALE, threads, tmp)
+        _line("11b mesh end to end", card=smi, **rec_mesh)
+        _check_e2e(rec_mesh, ("rowscan_votes", "rowscan_cigar"),
+                   "end to end on the mesh")
+        _line("11c two-process mapping", card=smi,
+              **phase_two_process_mapping(tmp))
+        _line("11d haslr_assemble", card=smi, **phase_haslr_assemble(tmp))
 
     return [
         json.dumps({"kernels": [

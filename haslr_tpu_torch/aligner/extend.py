@@ -15,6 +15,10 @@ ENGINE`), as in the reference:
   ``native.mapping_cigars_native`` (or ``mapping_to_cigar`` without the
   library).
 
+Under a ``dp`` mesh (``mesh=``) each launch's rows split into contiguous
+blocks, one a device, every block launched before any is collected;
+rows are independent, so nothing is merged but the rows' order.
+
 The host fallbacks are the reference's: :func:`nw_cigar` for short,
 empty, band-incompatible (``|lq - lt| >= W/2 - 4``) or S > 16384 segments
 and for rows whose run list overflowed MAXR.  The host half of the module
@@ -32,7 +36,7 @@ import torch
 
 from haslr_tpu_torch import native
 from haslr_tpu_torch.core import cigar as ccigar
-from haslr_tpu_torch.device import resolve_device
+from haslr_tpu_torch.dist.mesh import Mesh, as_mesh
 from haslr_tpu_torch.kernels import nw
 from haslr_tpu_torch.kernels import nw_rowscan as rsk
 from haslr_tpu_torch.kernels.consensus_dense import _band_width
@@ -44,11 +48,14 @@ PROF: dict[str, float] = {}
 
 
 def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
-                         device: torch.device | str | None = None):
+                         device: torch.device | str | None = None,
+                         mesh: Mesh | None = None):
     """Globally align many (q_codes, t_codes) segment pairs; returns a
     list of (ops, lens, n_eq) parallel to ``segments``.  ``device``: the
-    card unless the caller says ``"cpu"``."""
-    device = resolve_device(device)
+    card unless the caller says ``"cpu"``; ``mesh``, when given, in its
+    place: each launch's rows split over its devices (each block takes
+    its own kernel route), with the same results."""
+    mesh = as_mesh(device, mesh)
     PROF.clear()
 
     def _prof(key, dt):
@@ -101,16 +108,16 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
             _prof("pack", time.time() - t0)
             t0 = time.time()
             if use_runs:
-                dev = rsk.cigar_runs_device_raw(
-                    reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
-                    device=device,
+                dev = rsk.cigar_runs_device_sharded(
+                    reads, r_lens, drafts, d_lens, mesh, W, match, mismatch,
+                    gap,
                 )
             else:
                 # int16 on the device (S <= 16384), as the native decoder
                 # takes it: half the copy of int32
-                dev = nw.align_mapping_device_raw(
-                    reads, r_lens, drafts, d_lens, W, match, mismatch, gap,
-                    device=device,
+                dev = nw.align_mapping_device_sharded(
+                    reads, r_lens, drafts, d_lens, mesh, W, match, mismatch,
+                    gap,
                 )
             in_flight.append((chunk, dev, reads, drafts, r_lens, d_lens))
             _prof("dispatch", time.time() - t0)
@@ -119,10 +126,10 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
             _collect_mapping(chunk, dev, reads, drafts, r_lens, d_lens,
                              segments, results, _prof)
             continue
-        runs_dev, nruns_dev = dev
         t0 = time.time()
-        runs = runs_dev.cpu().numpy().astype(np.uint16)
-        nruns = nruns_dev.cpu().numpy()
+        runs = np.concatenate([r.cpu().numpy() for r, _ in dev]) \
+            .astype(np.uint16)
+        nruns = np.concatenate([n.cpu().numpy() for _, n in dev])
         _prof("collect_d2h", time.time() - t0)
         t0 = time.time()
         rows = native.runs_cigars_native(runs, nruns, reads, drafts, r_lens,
@@ -145,9 +152,10 @@ def batch_align_segments(segments, match=2, mismatch=-4, gap=-2,
 
 def _collect_mapping(chunk, mapping_dev, reads, drafts, r_lens, d_lens,
                      segments, results, prof):
-    """Copy one chunk's int16 mapping back and decode its CIGARs."""
+    """Copy one chunk's int16 mapping (its row blocks) back and decode its
+    CIGARs."""
     t0 = time.time()
-    mapping = mapping_dev.cpu().numpy()
+    mapping = np.concatenate([m.cpu().numpy() for m in mapping_dev])
     prof("collect_d2h", time.time() - t0)
     t0 = time.time()
     rows = native.mapping_cigars_native(mapping, reads, drafts, r_lens,

@@ -48,32 +48,43 @@ def map_reads(
     min_chain_score: float = 40.0,
     threads: int = 1,
     device: torch.device | str | None = None,
+    host_shard: tuple[int, int] | None = None,
+    mesh=None,
 ) -> int:
     """Map all reads; writes PAF; returns the record count.  Same
     contract as the reference's ``map_reads`` (``minimap2 -t T
     --secondary=no -c {preset} contigs lr``), with the extension on
-    ``device`` (the card unless the caller says ``"cpu"``).  One host
-    only: the reference's ``host_shard`` waits for the multi-device
-    port."""
-    from haslr_tpu_torch.aligner import extend
-    from haslr_tpu_torch.device import resolve_device
+    ``device`` (the card unless the caller says ``"cpu"``) or, given a
+    ``dp`` :class:`~haslr_tpu_torch.dist.mesh.Mesh`, split over its
+    devices with the same PAF.
 
-    device = resolve_device(device)
+    ``host_shard=(i, n)``: this process maps only the reads with
+    ``read_index % n == i`` (the index is built whole in every process)
+    and writes its own PAF shard; the assembler reads the shards through
+    ``mapping_fofn``.  Under ``torch.distributed`` pass
+    :func:`haslr_tpu_torch.dist.host_shard`."""
+    from haslr_tpu_torch.aligner import extend
+    from haslr_tpu_torch.dist.mesh import as_mesh
+
+    mesh = as_mesh(device, mesh)
     k, w, hpc = PRESETS[read_type]
     contig_names, contig_codes = _load_contigs(contig_fasta)
+    sh_i, sh_n = host_shard if host_shard is not None else (0, 1)
 
     PROF.clear()
     t0 = time.time()
     if threads > 1:
         pending, segments = _seed_chain_shards(
             contig_fasta, reads_fasta, read_type, min_chain_score, threads,
+            host_shard,
         )
     else:
         idx = MinimizerIndex.build(contig_codes, k, w, hpc)
 
         def reads():
             for ri, rec in enumerate(cio.read_fastx(reads_fasta)):
-                yield ri, rec.name, cseq.encode(rec.seq)
+                if ri % sh_n == sh_i:
+                    yield ri, rec.name, cseq.encode(rec.seq)
 
         pending, segments = _seed_chain_segments(
             idx, contig_codes, reads(), min_chain_score
@@ -82,7 +93,7 @@ def map_reads(
     PROF["n_segments"] = float(len(segments))
 
     t0 = time.time()
-    seg_results = extend.batch_align_segments(segments, device=device)
+    seg_results = extend.batch_align_segments(segments, mesh=mesh)
     PROF["extend"] = time.time() - t0
     PROF.update({f"extend.{k2}": v for k2, v in extend.PROF.items()})
     t0 = time.time()

@@ -41,16 +41,18 @@ def _edge_window_seqs(edge: bb.BBGEdge, lrs) -> list[str]:
 def calc_consensus(
     graph, lrs, cfg: AssembleConfig | None = None,
     device: torch.device | str | None = None, log_path: str | None = None,
+    mesh=None,
 ) -> int:
     """Consensus for every unique edge; flags edges 12 like the reference
     work queue.  Returns the number of edges processed.  The device
-    engine runs on ``device``: the card unless the caller says
-    ``"cpu"``."""
+    engine runs on ``device`` (the card unless the caller says ``"cpu"``)
+    or, given a ``dp`` :class:`~haslr_tpu_torch.dist.mesh.Mesh`, over its
+    devices, with the same output."""
     cfg = cfg or AssembleConfig()
     if cfg.consensus_engine == "tpu":
-        from haslr_tpu_torch.device import resolve_device
+        from haslr_tpu_torch.dist.mesh import as_mesh
 
-        device = resolve_device(device)
+        mesh = as_mesh(device, mesh)
     edges = []
     for _n1, _r1, _n2, _r2, edge, twin in bb.unique_edges(graph):
         if edge.flag == 12:
@@ -68,7 +70,7 @@ def calc_consensus(
 
         results = batched_consensus(
             windows, match=cfg.poa_match, mismatch=cfg.poa_mismatch,
-            gap=cfg.poa_gap, warn=_warn, device=device,
+            gap=cfg.poa_gap, warn=_warn, mesh=mesh,
         )
     else:
         results = _host_poa_windows(

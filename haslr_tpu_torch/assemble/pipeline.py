@@ -34,7 +34,7 @@ from haslr_tpu_torch.assemble.longread_store import (
 from haslr_tpu_torch.assemble.stitch import get_assembly
 from haslr_tpu_torch.config import AssembleConfig
 from haslr_tpu_torch.core.io import read_fofn
-from haslr_tpu_torch.device import resolve_device
+from haslr_tpu_torch.dist.mesh import as_mesh
 
 
 class StageTimer:
@@ -171,14 +171,16 @@ def run_assembler(
     long_fofn: bool = False,
     mapping_fofn: bool = False,
     device: torch.device | str | None = None,
+    mesh=None,
 ) -> dict:
     """Full assembler run with consensus on ``device`` (the card unless
-    the caller says ``"cpu"``); returns a stats dict (uniq_freq,
-    edge/contig counts, output path).
+    the caller says ``"cpu"``) or, given a ``dp``
+    :class:`~haslr_tpu_torch.dist.mesh.Mesh`, over its devices; returns a
+    stats dict (uniq_freq, edge/contig counts, output path).
     ``long_fofn``/``mapping_fofn`` read the paths as file-of-file-names
     like the reference's ``--long-fofn``/``--mapping-fofn``."""
     cfg = cfg or AssembleConfig()
-    device = resolve_device(device)
+    mesh = as_mesh(device, mesh)
     os.makedirs(out_dir, exist_ok=True)
     t = StageTimer(log)
     contigs, uniq_freq, lrs, n_aln = _load_inputs(
@@ -213,8 +215,8 @@ def run_assembler(
     t.elapsed()
 
     t.note("calling consensus sequence between anchors...")
-    calc_consensus(graph, lrs, cfg, device=device,
-                   log_path=f"{out_dir}/log_consensus.txt")
+    calc_consensus(graph, lrs, cfg, log_path=f"{out_dir}/log_consensus.txt",
+                   mesh=mesh)
     t.elapsed()
 
     t.note("generating the assembly from the cleaned backbone graph...")

@@ -4,15 +4,16 @@
 The same five stages, parameterised artifact names, flags and
 skip-if-exists resume as the reference driver (``bin/haslr.py:18-50``);
 long-read preparation, short-read assembly and overlap removal are the
-port's copy of the host stages of :mod:`haslr_tpu.cli.haslr`, without
-its device mesh.  The aligner's
-extension and the consensus run on ``--device`` (``cuda``, the default,
-or ``cpu``).  Only ``--devices 1`` is accepted for now.
+port's copy of the host stages of :mod:`haslr_tpu.cli.haslr`.  The
+aligner's extension and the consensus run on ``--device`` (``cuda``, the
+default, or ``cpu``).  ``--devices N`` shards them, and the short-read
+k-mer count, over a ``dp`` mesh of N devices of that kind (0: every
+visible card), with the same outputs as one device.
 
 Usage::
 
     python -m haslr_tpu_torch.cli.haslr -o OUT -g 4.6m -l LR.fa -x pacbio \\
-        -s SR.fq [-t THREADS] [--device cuda|cpu]
+        -s SR.fq [-t THREADS] [--device cuda|cpu] [--devices N]
 """
 
 from __future__ import annotations
@@ -66,7 +67,24 @@ def prepare_lrs(cfg: PipelineConfig) -> str:
     return lr_file
 
 
-def assemble_srs(cfg: PipelineConfig) -> str:
+def _get_mesh(cfg: PipelineConfig, device, mesh=None):
+    """The dp mesh the device stages shard over: ``mesh`` when the caller
+    gives one, else the first ``cfg.devices`` devices of ``device``'s kind
+    (every visible card for 0; ``device`` alone for 1).  Asking for more
+    cards than are visible raises, as does a mesh given beside
+    ``cfg.devices`` or beside a ``device`` of another kind."""
+    from haslr_tpu_torch.dist.mesh import as_mesh, make_mesh
+
+    if cfg.devices != 1:
+        if mesh is not None:
+            raise ValueError(f"give the mesh either as devices="
+                             f"{cfg.devices} or as mesh=, not both")
+        mesh = make_mesh(None if cfg.devices == 0 else cfg.devices,
+                         device=device)
+    return as_mesh(device, mesh)
+
+
+def assemble_srs(cfg: PipelineConfig, mesh) -> str:
     from haslr_tpu_torch.sr.assemble_sr import assemble_short_reads
 
     prefix = f"{cfg.out}/sr_k{cfg.minia_kmer}_a{cfg.minia_solid}"
@@ -78,6 +96,8 @@ def assemble_srs(cfg: PipelineConfig) -> str:
             kmer_size=cfg.minia_kmer,
             min_abundance=cfg.minia_solid,
             asm_type=cfg.minia_asm,
+            # a mesh of one counts unsharded, as one device does
+            mesh=mesh if mesh.size > 1 else None,
         )
         _done()
     else:
@@ -119,7 +139,7 @@ def _lr_name(cfg: PipelineConfig) -> str:
 
 
 def align_lr_src(cfg: PipelineConfig, lr_file: str, src_file: str,
-                 device) -> str:
+                 mesh) -> str:
     from haslr_tpu_torch.aligner.map import map_reads
 
     paf = (
@@ -129,7 +149,7 @@ def align_lr_src(cfg: PipelineConfig, lr_file: str, src_file: str,
     _stamp("aligning long reads to short read assembly... ")
     if not os.path.isfile(paf):
         map_reads(src_file, lr_file, paf, read_type=cfg.type,
-                  threads=cfg.threads, device=device)
+                  threads=cfg.threads, mesh=mesh)
         _done()
     else:
         _done(skipped=True)
@@ -137,7 +157,7 @@ def align_lr_src(cfg: PipelineConfig, lr_file: str, src_file: str,
 
 
 def assemble_lr(cfg: PipelineConfig, lr_file: str, src_file: str,
-                paf: str, device) -> str:
+                paf: str, mesh) -> str:
     from haslr_tpu_torch.assemble.pipeline import run_assembler
 
     asm_dir = (
@@ -149,19 +169,18 @@ def assemble_lr(cfg: PipelineConfig, lr_file: str, src_file: str,
     if not os.path.isfile(f"{asm_dir}/asm.final.fa"):
         with open(asm_dir + ".err", "w") as err:
             run_assembler(src_file, lr_file, paf, asm_dir,
-                          cfg=cfg.assemble_config(), log=err, device=device)
+                          cfg=cfg.assemble_config(), log=err, mesh=mesh)
         _done()
     else:
         _done(skipped=True)
     return f"{asm_dir}/asm.final.fa"
 
 
-def run_pipeline(cfg: PipelineConfig, device) -> str:
-    """The five stages on ``device``; returns the final assembly path."""
-    if cfg.devices != 1:
-        raise ValueError(
-            f"--devices {cfg.devices}: only one device is supported so far"
-        )
+def run_pipeline(cfg: PipelineConfig, device, mesh=None) -> str:
+    """The five stages on ``device``, or over a dp mesh (``mesh``, or the
+    one of ``cfg.devices``: :func:`_get_mesh`); returns the final
+    assembly path."""
+    mesh = _get_mesh(cfg, device, mesh)
     os.makedirs(cfg.out, exist_ok=True)
     sys.stdout.write(f"number of threads: {cfg.threads}\n")
     sys.stdout.write(f"output directory: {cfg.out}\n")
@@ -171,16 +190,16 @@ def run_pipeline(cfg: PipelineConfig, device) -> str:
     STAGE_TIMES["prepare_lrs"] = time.time() - t
     if cfg.contig is None:
         t = time.time()
-        assemble_srs(cfg)
+        assemble_srs(cfg, mesh)
         STAGE_TIMES["assemble_srs"] = time.time() - t
     t = time.time()
     noov_file, good_file = remove_short_src(cfg)
     STAGE_TIMES["remove_short_src"] = time.time() - t
     t = time.time()
-    paf = align_lr_src(cfg, lr_file, good_file, device)
+    paf = align_lr_src(cfg, lr_file, good_file, mesh)
     STAGE_TIMES["align_lr_src"] = time.time() - t
     t = time.time()
-    out = assemble_lr(cfg, lr_file, noov_file, paf, device)
+    out = assemble_lr(cfg, lr_file, noov_file, paf, mesh)
     STAGE_TIMES["assemble_lr"] = time.time() - t
     return out
 
@@ -193,6 +212,7 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
         usage=(
             "haslr [-t THREADS] -o OUT_DIR -g GENOME_SIZE -l LONG [LONG ...]"
             " -x LONG_TYPE -s SHORT [SHORT ...] [--device cuda|cpu]"
+            " [--devices N]"
         ),
     )
     p.add_argument("-o", "--out", required=True)
@@ -222,7 +242,9 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
     )
     p.add_argument(
         "--devices", type=int, default=1,
-        help="number of devices (only 1 is supported so far)",
+        help="device-mesh width for the device stages (k-mer merge, "
+             "aligner extension, consensus) on --device's kind; 0 = all "
+             "visible cards",
     )
     a = p.parse_args(argv)
     if a.short is None and a.contig is None:
@@ -261,10 +283,8 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
 
 
 def main(argv=None):
-    from haslr_tpu_torch.device import resolve_device
-
     cfg, device_name = parse_options(argv)
-    out = run_pipeline(cfg, resolve_device(device_name))
+    out = run_pipeline(cfg, device_name)
     sys.stdout.write(f"final assembly: {out}\n")
     return 0
 

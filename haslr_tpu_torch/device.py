@@ -11,9 +11,10 @@ import torch
 
 
 def resolve_device(name: str | torch.device | None = None) -> torch.device:
-    """``"cuda"`` (also for ``None``, the default of every entry point)
-    or ``"cpu"`` as a :class:`torch.device`.  Asking for CUDA where none
-    is available raises: the port never falls back to the CPU
+    """``"cuda"`` (also for ``None``, the default of every entry point),
+    ``"cuda:N"`` or ``"cpu"`` as a :class:`torch.device`; a card always
+    with its index (plain ``cuda`` is the current one).  Asking for CUDA
+    where none is available raises: the port never falls back to the CPU
     silently."""
     dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda":
@@ -22,6 +23,8 @@ def resolve_device(name: str | torch.device | None = None) -> torch.device:
                 "device 'cuda' requested but torch.cuda.is_available() is "
                 "False"
             )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         return dev
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (use cuda or cpu)")

@@ -12,11 +12,15 @@ follow: ``align_mapping_device`` here, the extension
 - :func:`align_mapping_device_raw` / :func:`align_mapping_device` — DP +
   traceback on the device, the (B, R) mapping: the row-scan
   ``hx_rowscan_mapping`` or the wavefront ``hx_wavefront_mapping`` kernel.
+- :func:`align_mapping_device_sharded` — the same over a ``dp`` mesh,
+  the rows split in blocks, one a device.
 - :func:`banded_nw_batch` + :func:`traceback_batch` — the DP-only route:
   the wavefront direction tensor (``hx_wavefront_dirs``) copied to the
   host and walked there.
-
-Left for the multi-device slice: ``nw_scores`` and the sharded align.
+- :func:`nw_scores` — the score-only wavefront DP of the distributed
+  support step (:mod:`haslr_tpu_torch.dist.consensus_step`); the
+  reference computes it in XLA outside any Pallas kernel, so here it is
+  plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from haslr_tpu_torch.kernels.nw_rowscan import (
     DIAG,
     LEFT,
+    NEG,
     UP,
     put_batch,
     rowscan_mapping,
@@ -70,6 +75,78 @@ def align_mapping_device(reads, r_lens, drafts, d_lens, W=128, match=5,
     return align_mapping_device_raw(
         reads, r_lens, drafts, d_lens, W, match, mismatch, gap, device
     ).cpu().numpy()
+
+
+def align_mapping_device_sharded(reads, r_lens, drafts, d_lens, mesh, W=128,
+                                 match=5, mismatch=-4, gap=-8):
+    """Data-parallel :func:`align_mapping_device_raw` over a
+    :class:`~haslr_tpu_torch.dist.mesh.Mesh`: the rows split into
+    contiguous blocks, one a mesh device, with no collective; every block
+    is launched before any is collected.  Returns one device mapping a
+    non-empty block, in row order."""
+    return [
+        align_mapping_device_raw(reads[a:b], r_lens[a:b], drafts[a:b],
+                                 d_lens[a:b], W, match, mismatch, gap,
+                                 device=dev)
+        for (a, b), dev in zip(mesh.blocks(len(reads)), mesh.devices)
+        if b > a
+    ]
+
+
+def nw_scores(reads, r_lens, drafts, d_lens, W=128, match=5, mismatch=-4,
+              gap=-8):
+    """Score-only banded NW over the anti-diagonals: each read's
+    final-cell score (B,) int32, on the tensors' device.  The reference's
+    recurrence step for step (two H diagonals carried, the final cell
+    caught as its diagonal passes; empty pairs score 0), in plain PyTorch
+    ops."""
+    B, R = reads.shape
+    D = drafts.shape[1]
+    dev = reads.device
+    base = band_bases(R, D, W)
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)
+    rl = r_lens.to(torch.int32)
+    dl = d_lens.to(torch.int32)
+    neg = torch.full((B, W), NEG, dtype=torch.int32, device=dev)
+    h_prev2, h_prev1 = neg, neg.clone()
+    h_prev1[:, 0] = 0
+    pad = torch.full((B, 1), 4, dtype=reads.dtype, device=dev)
+    reads_p = torch.cat([reads, pad], 1)
+    drafts_p = torch.cat([drafts, pad.to(drafts.dtype)], 1)
+    negcol = neg[:, :1]
+    best = torch.full((B,), NEG, dtype=torch.int32, device=dev)
+
+    def shift(x, off):  # x[:, k + off], NEG outside the band
+        off = min(max(off, -1), 2)  # t = 1: every diagonal-2 cell is NEG
+        xp = torch.cat([negcol, x, negcol, negcol], 1)
+        return xp[:, off + 1 : off + 1 + W]
+
+    for t in range(1, R + D + 1):
+        b_t = int(base[t])
+        s1 = b_t - int(base[t - 1])
+        s2 = b_t - int(base[t - 2])
+        j = b_t + lanes
+        i = t - j
+        rb = reads_p[:, torch.clamp(i - 1, 0, R).long()]
+        db = drafts_p[:, torch.clamp(j - 1, 0, D).long()]
+        sub = torch.where(rb == db, match, mismatch).to(torch.int32)
+        i_b, j_b = i[None, :], j[None, :]
+        valid = (i_b >= 0) & (i_b <= rl[:, None]) & (j_b >= 0) \
+            & (j_b <= dl[:, None])
+        h = torch.maximum(
+            torch.where((i_b >= 1) & (j_b >= 1), shift(h_prev2, s2 - 1)
+                        + sub, NEG),
+            torch.maximum(
+                torch.where(i_b >= 1, shift(h_prev1, s1) + gap, NEG),
+                torch.where(j_b >= 1, shift(h_prev1, s1 - 1) + gap, NEG),
+            ),
+        )
+        h = torch.where(valid, h, NEG)
+        lane_f = torch.clamp(dl - b_t, 0, W - 1).long()
+        val = h.gather(1, lane_f[:, None])[:, 0]
+        best = torch.where(rl + dl == t, val, best)
+        h_prev2, h_prev1 = h_prev1, h
+    return torch.where((rl == 0) & (dl == 0), 0, best)
 
 
 def banded_nw_batch(reads, r_lens, drafts, d_lens, W=128, match=5,

@@ -321,14 +321,26 @@ def band_table(R: int, D: int, W: int,
     return np.concatenate([base, words.view(np.int32)])
 
 
+def check_indexed(device: torch.device) -> torch.device:
+    """``device`` itself, or a ``ValueError`` for a CUDA device without
+    its index: the per-device caches are keyed by the device, and a
+    plain ``cuda`` would stand for whichever card is current."""
+    if device.type == "cuda" and device.index is None:
+        raise ValueError("a per-device cache needs an indexed device "
+                         "(cuda:0, not cuda)")
+    return device
+
+
 @functools.lru_cache(maxsize=None)
 def _base_tensor(R, D, W, rows, device):
-    return torch.from_numpy(band_table(R, D, W, rows)).to(device)
+    return torch.from_numpy(band_table(R, D, W, rows)).to(
+        check_indexed(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.cuda.get_device_properties(
+        check_indexed(device)).multi_processor_count
 
 
 def _check_cuda_args(reads, r_lens, drafts, d_lens, W):
@@ -361,7 +373,8 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
     :data:`DIRS_BUDGET`, counting each launch
     in ``launches[name]``; ``base`` is the band's lane-0 column table on
     the device, ``outs`` (tensor, bytes per read) output pairs, ``extra``
-    trailing int arguments."""
+    trailing int arguments.  The launches run with the tensors' card
+    current: the library's runtime launches into the current context."""
     from haslr_tpu_torch.kernels import _build
 
     B, R = reads.shape
@@ -371,26 +384,27 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
                        device=reads.device)
     fn = _build.lib()[f"hx_{name}"]
     stream = torch.cuda.current_stream(reads.device)
-    for lo in range(0, B, chunk):
-        n = min(chunk, B - lo)
-        if LAUNCH_LOG is not None:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t0.record(stream)
-        err = fn(
-            reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
-            drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
-            base.data_ptr(), dirs.data_ptr(),
-            *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
-            n, R, D, W, *extra, stream.cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                               f"{err}")
-        launches[name] += 1
-        if LAUNCH_LOG is not None:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record(stream)
-            LAUNCH_LOG.append((name, n, R, W, t0, t1))
+    with torch.cuda.device(reads.device):
+        for lo in range(0, B, chunk):
+            n = min(chunk, B - lo)
+            if LAUNCH_LOG is not None:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t0.record(stream)
+            err = fn(
+                reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
+                drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
+                base.data_ptr(), dirs.data_ptr(),
+                *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
+                n, R, D, W, *extra, stream.cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {err}")
+            launches[name] += 1
+            if LAUNCH_LOG is not None:
+                t1 = torch.cuda.Event(enable_timing=True)
+                t1.record(stream)
+                LAUNCH_LOG.append((name, n, R, W, t0, t1))
 
 
 def packed_bytes(R: int, lanes: int) -> int:
@@ -586,6 +600,24 @@ def cigar_runs_device_raw(reads, r_lens, drafts, d_lens, W=128, match=2,
         maxr = max(128, R // 4)
     return rowscan_cigar(*put_batch(device, reads, r_lens, drafts, d_lens),
                          W, match, mismatch, gap, maxr)
+
+
+def cigar_runs_device_sharded(reads, r_lens, drafts, d_lens, mesh, W=128,
+                              match=2, mismatch=-4, gap=-2, maxr=None):
+    """Data-parallel :func:`cigar_runs_device_raw` over a
+    :class:`~haslr_tpu_torch.dist.mesh.Mesh`: the rows split into
+    contiguous blocks, one a mesh device, with no collective; every block
+    is launched before any is collected.  Returns one ``(runs, n_runs)``
+    pair of device tensors a non-empty block, in row order."""
+    if maxr is None:
+        maxr = max(128, reads.shape[1] // 4)
+    return [
+        cigar_runs_device_raw(reads[a:b], r_lens[a:b], drafts[a:b],
+                              d_lens[a:b], W, match, mismatch, gap, maxr,
+                              device=dev)
+        for (a, b), dev in zip(mesh.blocks(len(reads)), mesh.devices)
+        if b > a
+    ]
 
 
 def put_batch(device, reads, r_lens, drafts, d_lens):

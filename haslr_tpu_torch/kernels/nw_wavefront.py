@@ -57,6 +57,7 @@ from haslr_tpu_torch.kernels.nw_rowscan import (
     _route,
     _sm_count,
     _word_rows,
+    check_indexed,
     chunked_plain,
     launch_chunked,
     pack_dirs_row,
@@ -290,7 +291,7 @@ def diag_table(R: int, D: int, W: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _base_tensor(R, D, W, device):
-    return torch.from_numpy(diag_table(R, D, W)).to(device)
+    return torch.from_numpy(diag_table(R, D, W)).to(check_indexed(device))
 
 
 def _front(reads, r_lens, drafts, d_lens, W) -> bool:
@@ -427,13 +428,16 @@ def wavefront_dirs(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
     dirs = torch.empty((R + D + 1, B, W), dtype=torch.uint8,
                        device=reads.device)
     reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
-    err = _build.lib()["hx_wavefront_dirs"](
-        reads.data_ptr(), r_lens.data_ptr(), drafts.data_ptr(),
-        d_lens.data_ptr(), _base_tensor(R, D, W, reads.device).data_ptr(),
-        dirs.data_ptr(), B, reads.shape[1], drafts.shape[1], W, match,
-        mismatch, gap, R, D, C, wpr, rpb,
-        torch.cuda.current_stream(reads.device).cuda_stream,
-    )
+    fn = _build.lib()["hx_wavefront_dirs"]
+    with torch.cuda.device(reads.device):  # the tensors' card current
+        err = fn(
+            reads.data_ptr(), r_lens.data_ptr(), drafts.data_ptr(),
+            d_lens.data_ptr(),
+            _base_tensor(R, D, W, reads.device).data_ptr(), dirs.data_ptr(),
+            B, reads.shape[1], drafts.shape[1], W, match, mismatch, gap, R,
+            D, C, wpr, rpb,
+            torch.cuda.current_stream(reads.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"wavefront_dirs kernel launch failed: CUDA "
                            f"error {err}")

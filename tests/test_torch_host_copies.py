@@ -52,7 +52,8 @@ PARTIAL = {
         "the branches that reach the device / numpy k-mer counters raise "
         "until those are ported",
         ["load_read_codes", "iter_read_codes", "_clip_tips",
-         "STREAMING_THRESHOLD", "_load_flat", "_count_native", "_finish"],
+         "STREAMING_THRESHOLD", "_load_flat", "_count_native",
+         "_count_native_sharded", "_finish"],
     ),
     "sr/dbg.py": (
         "assemble_unitigs raises: it calls the k-mer counters",
@@ -62,28 +63,30 @@ PARTIAL = {
          "unitigs_from_counts"],
     ),
     "aligner/map.py": (
-        "map_reads takes a torch device and streams through the port's "
-        "extension",
+        "map_reads takes a torch device or a mesh and streams through the "
+        "port's extension",
         ["PRESETS", "collect_anchors", "accept_chains", "_emit_record",
          "map_read", "_seed_chain_segments", "_emit_all", "_load_contigs",
          "_shard_worker", "_seed_chain_shards"],
     ),
     "aligner/extend.py": (
-        "batch_align_segments launches the CUDA kernels; no jit downcast",
+        "batch_align_segments launches the CUDA kernels on the blocks of "
+        "a mesh; no jit downcast",
         ["NEG_H", "nw_cigar", "mapping_to_cigar", "_decode_runs_py",
          "chain_to_segments", "assemble_parts", "chain_to_cigar"],
     ),
     "assemble/pipeline.py": (
-        "run_assembler takes a torch device and has no mesh",
+        "run_assembler takes a torch device or a torch mesh",
         ["StageTimer"],
     ),
     "assemble/consensus.py": (
         "calc_consensus calls the port's batched_consensus on a torch "
-        "device",
+        "device or mesh",
         ["_edge_window_seqs", "_host_poa_windows"],
     ),
     "cli/haslr.py": (
-        "--device in place of --devices; no mesh argument",
+        "--device beside --devices; the mesh is built once, of --device's "
+        "kind",
         ["_stamp", "_done", "prepare_lrs", "remove_short_src"],
     ),
 }
@@ -162,7 +165,9 @@ def test_every_port_module_is_accounted_for():
         "__init__.py", "device.py", "aligner/__init__.py",
         "assemble/__init__.py", "cli/__init__.py", "kernels/__init__.py",
         "kernels/_build.py", "kernels/consensus.py",
-        "kernels/consensus_dense.py", "kernels/nw.py",
+        "kernels/consensus_dense.py", "kernels/nw.py", "kernels/kmer.py",
+        "dist/__init__.py", "dist/mesh.py", "dist/consensus_step.py",
+        "cli/haslr_assemble.py",
         "kernels/nw_rowscan.py", "kernels/nw_wavefront.py",
     }
     found = set()
@@ -172,3 +177,39 @@ def test_every_port_module_is_accounted_for():
         found.update(os.path.relpath(os.path.join(d, f), PORT)
                      for f in files if f.endswith(".py"))
     assert found == own | set(WHOLE) | set(PARTIAL)
+
+
+def test_merge_kmer_counts_differs_only_in_saturation():
+    """``kernels/kmer.py:merge_kmer_counts`` is the reference's function
+    with one difference (ROADMAP C4): the merged counts saturate at
+    2^32 - 1 in the numpy branches as in the native merge, which the
+    docstring says."""
+    port = _definitions(_read(os.path.join(PORT, "kernels", "kmer.py")))
+    ref = _definitions(_renamed(os.path.join(REF, "kernels", "kmer.py")))
+    want = ref["merge_kmer_counts"]
+    for old, new in (
+        ("""        keep = sums >= min_count
+        return hi[starts][keep], lo[starts][keep], sums[keep].astype(
+            np.int64
+        )""", """        keep = sums >= min_count
+        return hi[starts][keep], lo[starts][keep], np.minimum(
+            sums[keep], COUNT_MAX
+        ).astype(np.int64)"""),
+        ("""        return hi[keep], lo[keep], cnt[keep].astype(np.int64)""",
+         """        return hi[keep], lo[keep], np.minimum(cnt[keep], COUNT_MAX).astype(
+            np.int64
+        )"""),
+        ("""    the same way if that ever matters; production k is 49.)
+    \"\"\"""", """    the same way if that ever matters; production k is 49.)
+
+    Counts are summed in int64, filtered, then saturated at
+    :data:`COUNT_MAX` = 2^32 - 1, as the native merge (``hx_kmer_merge``,
+    ``native/kmer.cpp``) stores them in uint32: both branches give one
+    answer.  This is the one difference from the reference's function,
+    whose numpy branch returns the unsaturated sums.
+    \"\"\""""),
+    ):
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    assert port["merge_kmer_counts"] == want
+    assert port["COUNT_MAX"] == "COUNT_MAX = 0xFFFFFFFF"

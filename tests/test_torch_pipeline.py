@@ -147,13 +147,42 @@ def test_port_cli_resume_skips_every_stage(dataset, port_run, capsys):
     assert said.count("already exists") == 6, said
 
 
-def test_port_cli_rejects_several_devices(dataset, tmp_path):
+def test_port_cli_devices_flag_byte_identical(dataset, port_run, tmp_path,
+                                             capsys):
+    """``--devices 2 --device cpu``: the k-mer merge, the extension and
+    the consensus split over two CPU shards write the single-device run's
+    SR contigs, PAF and final assembly."""
     from haslr_tpu_torch.cli.haslr import main
 
     _root, sr_path, lr_path = dataset
-    with pytest.raises(ValueError, match="only one device"):
-        main(_args(str(tmp_path / "o"), sr_path, lr_path)
-             + ["--device", "cpu", "--devices", "2"])
+    port_out, _info = port_run
+    torch.set_num_threads(1)
+    out = str(tmp_path / "mesh")
+    assert main(_args(out, sr_path, lr_path)
+                + ["--device", "cpu", "--devices", "2"]) == 0
+    capsys.readouterr()
+    asm = "asm_contigs_k49_a3_c250_lr25x_b500_s3_sim0.85"
+    for name in ("sr_k49_a3.contigs.fa", "map_contigs_k49_a3_c250_lr25x.paf",
+                 f"{asm}/asm.final.fa", f"{asm}/asm.final.ann"):
+        with open(f"{port_out}/{name}", "rb") as f, \
+                open(f"{out}/{name}", "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def test_port_cli_rejects_several_devices(dataset, tmp_path, monkeypatch):
+    """More cards than are visible: the mesh is never shrunk to what is
+    there, and nothing runs before the refusal."""
+    from haslr_tpu_torch.cli.haslr import main
+
+    _root, sr_path, lr_path = dataset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    out = tmp_path / "o"
+    with pytest.raises(ValueError, match="requested 2 devices but only 1"):
+        main(_args(str(out), sr_path, lr_path)
+             + ["--device", "cuda", "--devices", "2"])
+    assert not out.exists()
 
 
 def test_resolve_device():

@@ -49,7 +49,12 @@ def test_port_file_list_is_whole():
     for rel in ("haslr_tpu_torch/native/__init__.py",
                 "haslr_tpu_torch/sr/assemble_sr.py",
                 "haslr_tpu_torch/aligner/map.py",
-                "haslr_tpu_torch/testutil/simulate.py"):
+                "haslr_tpu_torch/testutil/simulate.py",
+                "haslr_tpu_torch/dist/__init__.py",
+                "haslr_tpu_torch/dist/mesh.py",
+                "haslr_tpu_torch/dist/consensus_step.py",
+                "haslr_tpu_torch/kernels/kmer.py",
+                "haslr_tpu_torch/cli/haslr_assemble.py"):
         assert rel in PORT_FILES
 
 
