@@ -54,7 +54,28 @@ neither a launch on a second card nor a speed-up):
     launches by kernel and bucket); two processes under gloo, both on
     ``cuda:0``, mapping host shards of a simulated 200 kb genome, their
     PAF lines equal to one process's; and the standalone
-    ``haslr_assemble`` on the golden inputs, equal to phase 4's bytes.
+    ``haslr_assemble`` on the golden inputs, equal to phase 4's bytes;
+    and the consensus workload under the wavefront engine through the
+    mesh, equal to phase 9's output on all 4096 windows (B4 a shard);
+
+then the modules that hold no kernel of their own, or reach one off the
+default path:
+
+12. the device k-mer counters on phase 6's short reads (40x of 4.6 Mb,
+    k = 49, abundance 3): ``count_kmers_device`` on the whole
+    concatenated stream and ``count_kmers_streaming`` at its defaults,
+    each equal to the native counter array for array (seconds and
+    Mbases/s of all three, the streaming ``PROF``, the peak device
+    memory), and the SR stage through ``assemble_short_reads(
+    streaming=True)`` writing phase 6's SR contigs byte for byte;
+12b. the streaming counter's sharded phase-2 merge over phase 11's mesh
+    and its disk spill, on 11c's long reads, each equal to the native
+    count;
+13. the chunked consensus engine (``batched_consensus(engine=
+    "chunked")``) on the consensus workload under both NW engines, with
+    the vote tables on the card and on the host, each equal to phase 5's
+    dense output on all 4096 windows; B3's and B5's launches and device
+    ms on that path.
 
 The bound of a kernel is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its int32 operations on this
@@ -91,7 +112,7 @@ KERNELS = {
     "rowscan_cigar": ("haslr_tpu_torch/csrc/rowscan.cu",
                       "haslr_tpu/kernels/nw_rowscan.py:692", "e2e"),
     "rowscan_mapping": ("haslr_tpu_torch/csrc/rowscan.cu",
-                        "haslr_tpu/kernels/nw_rowscan.py:422", "oracle"),
+                        "haslr_tpu/kernels/nw_rowscan.py:422", "chunked"),
     "wavefront_votes": ("haslr_tpu_torch/csrc/wavefront.cu",
                         "haslr_tpu/kernels/nw_pallas.py:266", "e2e_wf"),
     "wavefront_mapping": ("haslr_tpu_torch/csrc/wavefront.cu",
@@ -580,7 +601,8 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
     """The consensus workload under the wavefront engine: windows/s, the
     card's output equal to the CPU plain path's on ``n_check`` windows,
     and the count of windows whose consensus differs from the row-scan
-    engine's (a fact, not a check: the two bands differ)."""
+    engine's (a fact, not a check: the two bands differ).  Returns
+    (record, the card's consensus)."""
     import torch
 
     from haslr_tpu_torch.kernels.consensus import batched_consensus
@@ -610,7 +632,7 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
         "windows_differing_from_rowscan": sum(
             a != b for a, b in zip(out, rowscan_out)
         ),
-    }
+    }, out
 
 
 def phase_oracle(dev, n_reads=4096):
@@ -798,28 +820,33 @@ def phase_e2e_wavefront(dev, scale, threads, tmp):
     return rec
 
 
-def phase_mesh_consensus(mesh, windows, rowscan_out):
-    """The consensus workload through ``mesh``: windows/s, B1's launches
-    (each shard launches its own), and the output equal to phase 5's on
-    every window."""
+def phase_mesh_consensus(mesh, windows, want, phase, engine="rowscan"):
+    """The consensus workload through ``mesh`` under NW ``engine``:
+    windows/s, the votes kernel's launches (each shard launches its own),
+    and the output equal to ``want`` (phase ``phase``'s, one device under
+    the same engine) on every window."""
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
-    reset_launches()
-    with launch_log() as by_bucket:
-        t0 = time.time()
-        out = batched_consensus(windows, mesh=mesh)
-        dt = time.time() - t0
-    n_b1 = launches()["rowscan_votes"]
-    n_diff = sum(a != b for a, b in zip(out, rowscan_out))
-    if n_diff or len(out) != len(rowscan_out):
-        raise AssertionError(f"mesh consensus differs from phase 5's on "
-                             f"{n_diff} of {len(windows)} windows")
-    if n_b1 < mesh.size:
-        raise AssertionError(f"mesh consensus launched B1 {n_b1} times")
+    kernel = f"{engine}_votes"
+    with nw_engine(engine):
+        reset_launches()
+        with launch_log() as by_bucket:
+            t0 = time.time()
+            out = batched_consensus(windows, mesh=mesh)
+            dt = time.time() - t0
+        n_launch = launches()[kernel]
+    n_diff = sum(a != b for a, b in zip(out, want))
+    if n_diff or len(out) != len(want):
+        raise AssertionError(f"{engine} mesh consensus differs from phase "
+                             f"{phase}'s on {n_diff} of {len(windows)} "
+                             "windows")
+    if n_launch < mesh.size:
+        raise AssertionError(f"{engine} mesh consensus launched {kernel} "
+                             f"{n_launch} times")
     return {"windows": len(windows), "windows_per_s": len(windows) / dt,
-            "seconds": dt, "rowscan_votes_launches": n_b1,
+            "seconds": dt, f"{kernel}_launches": n_launch,
             "launches_by_bucket": by_bucket,
-            "windows_equal_to_phase_5": len(windows)}
+            f"windows_equal_to_phase_{phase}": len(windows)}
 
 
 def phase_mesh_e2e(dev, mesh, scale, threads, tmp):
@@ -958,6 +985,146 @@ def phase_haslr_assemble(tmp, device="cuda"):
                 raise AssertionError(f"haslr_assemble {name} != golden")
     return {"identical": ["tpu.asm.final.fa", "tpu.asm.final.ann"],
             "seconds": time.time() - t0}
+
+
+def _same_counts(want, got, what):
+    """(hi, lo, count) arrays equal in dtype and value, or raise."""
+    import numpy as np
+
+    for name, a, b in zip(("hi", "lo", "count"), want, got, strict=True):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the native "
+                                 "count")
+    return len(want[0])
+
+
+def phase_kmer_counters(dev, scale, tmp, k=49, min_count=3):
+    """Phase 12: the native counter, ``count_kmers_device`` on the whole
+    concatenated stream (separators between reads) and
+    ``count_kmers_streaming`` at its defaults on phase 6's short reads,
+    array for array; then the SR stage through the streaming counter,
+    byte for byte phase 6's SR contigs.  Each count is timed from reads
+    in memory to sorted arrays on the host."""
+    import numpy as np
+    import torch
+
+    from haslr_tpu_torch import native
+    from haslr_tpu_torch.kernels import kmer as kk
+    from haslr_tpu_torch.kernels import kmer_stream as ks
+    from haslr_tpu_torch.sr import assemble_sr as asr
+
+    (_g, sr_path, _lr), _ = _data_paths(scale)
+    codes, offsets = asr._load_flat([sr_path])
+    n_bases = len(codes)
+    t0 = time.time()
+    want = native.count_kmers_native(codes, offsets, k, min_count,
+                                     n_threads=os.cpu_count() or 1)
+    native_s = time.time() - t0
+    reads = [codes[offsets[i] : offsets[i + 1]]
+             for i in range(len(offsets) - 1)]
+    with_seps = asr.load_read_codes([sr_path])
+
+    def rate(sec):
+        return {"seconds": sec, "mbases_per_s": n_bases / sec / 1e6}
+
+    rec = {"bases": n_bases, "reads": len(reads), "codes_with_seps":
+           len(with_seps), "k": k, "min_count": min_count,
+           "native": {**rate(native_s), "threads": os.cpu_count()}}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    got = kk.count_kmers_device(with_seps, k, min_count, device=dev)
+    rec["device"] = {**rate(time.time() - t0),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(
+                         dev),
+                     "solid_kmers": _same_counts(want, got,
+                                                 "count_kmers_device")}
+    del with_seps, got
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ks.PROF.clear()
+    t0 = time.time()
+    got = ks.count_kmers_streaming(reads, k, min_count, device=dev)
+    rec["streaming"] = {**rate(time.time() - t0),
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(dev),
+                        "prof_s": dict(ks.PROF),
+                        "solid_kmers": _same_counts(
+                            want, got, "count_kmers_streaming")}
+    del reads, got
+    out = os.path.join(tmp, "sr_streaming.contigs.fa")
+    t0 = time.time()
+    asr.assemble_short_reads([sr_path], out, kmer_size=k,
+                             min_abundance=min_count, streaming=True,
+                             torch_device=dev)
+    with open(out, "rb") as f, \
+            open(os.path.join(tmp, "e2e", "sr_k49_a3.contigs.fa"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("assemble_short_reads(streaming=True): SR "
+                                 "contigs differ from phase 6's")
+    rec["sr_stage_streaming"] = {"seconds": time.time() - t0,
+                                 "prof_s": dict(asr.PROF),
+                                 "identical_to_phase_6":
+                                     "sr_k49_a3.contigs.fa"}
+    return rec
+
+
+def phase_kmer_sharded(dev, mesh, tmp, k=49, min_count=2):
+    """Phase 12b: the streaming counter's sharded phase-2 merge over
+    ``mesh`` (one prefix partition a device) and its disk spill, on
+    11c's long reads, each equal to the native count."""
+    from haslr_tpu_torch import native
+    from haslr_tpu_torch.kernels import kmer_stream as ks
+
+    codes, offsets, _n, _c = native.read_fastx_encoded(
+        os.path.join(tmp, "two_process", "lr.fa"))
+    want = native.count_kmers_native(codes, offsets, k, min_count,
+                                     n_threads=os.cpu_count() or 1)
+    reads = [codes[offsets[i] : offsets[i + 1]]
+             for i in range(len(offsets) - 1)]
+    rec = {"bases": len(codes), "reads": len(reads), "k": k,
+           "min_count": min_count, "chunk_bases": 1 << 18}
+    for tag, kw in (("sharded", {"mesh": mesh}),
+                    ("spilled", {"spill_dir": os.path.join(tmp, "kmer_spill"),
+                                 "device": dev})):
+        ks.PROF.clear()
+        t0 = time.time()
+        got = ks.count_kmers_streaming(reads, k, min_count,
+                                       chunk_bases=1 << 18, **kw)
+        rec[tag] = {"seconds": time.time() - t0, "prof_s": dict(ks.PROF),
+                    "solid_kmers": _same_counts(
+                        want, got, f"count_kmers_streaming ({tag})")}
+    return rec
+
+
+def phase_chunked(dev, windows, dense_out):
+    """Phase 13: the chunked consensus engine under both NW engines, the
+    vote tables on the card and on the host, each equal to phase 5's
+    dense output on every window; B3's and B5's launches and device ms
+    on this path."""
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    rec = {}
+    with launch_log() as by_bucket:
+        for engine in ("rowscan", "wavefront"):
+            with nw_engine(engine):
+                for device_pileup in (True, False):
+                    t0 = time.time()
+                    out = batched_consensus(windows, engine="chunked",
+                                            device_pileup=device_pileup,
+                                            device=dev)
+                    dt = time.time() - t0
+                    n_diff = sum(a != b for a, b in zip(out, dense_out))
+                    if n_diff or len(out) != len(dense_out):
+                        raise AssertionError(
+                            f"chunked engine ({engine}, device_pileup="
+                            f"{device_pileup}) differs from phase 5 on "
+                            f"{n_diff} of {len(windows)} windows")
+                    rec[f"{engine}_device_pileup_{device_pileup}"] = {
+                        "seconds": dt, "windows_per_s": len(windows) / dt,
+                        "windows_equal_to_phase_5": len(windows)}
+    rec["launches_by_bucket"] = by_bucket
+    return rec
 
 
 def _check_e2e(rec, names, what):
@@ -1126,8 +1293,9 @@ def main():
               identical=["tpu.asm.final.fa", "tpu.asm.final.ann"],
               seconds=golden_s, wavefront_votes_launches=n_b4)
 
-        _line("9 consensus, wavefront", device=kind,
-              **phase_consensus_wavefront(dev, windows, rowscan_out))
+        cons_wf, wavefront_out = phase_consensus_wavefront(dev, windows,
+                                                           rowscan_out)
+        _line("9 consensus, wavefront", device=kind, **cons_wf)
 
         rec_wf = phase_e2e_wavefront(dev, E2E_SCALE, threads, tmp)
         _line("10 end to end, wavefront", device=kind, **rec_wf)
@@ -1148,7 +1316,7 @@ def main():
               distinct_cards=len(set(mesh.devices)), visible_cards=n_cards,
               proves=proves)
         _line("11a mesh consensus", card=smi,
-              **phase_mesh_consensus(mesh, windows, rowscan_out))
+              **phase_mesh_consensus(mesh, windows, rowscan_out, 5))
         rec_mesh = phase_mesh_e2e(dev, mesh, E2E_SCALE, threads, tmp)
         _line("11b mesh end to end", card=smi, **rec_mesh)
         _check_e2e(rec_mesh, ("rowscan_votes", "rowscan_cigar"),
@@ -1156,6 +1324,25 @@ def main():
         _line("11c two-process mapping", card=smi,
               **phase_two_process_mapping(tmp))
         _line("11d haslr_assemble", card=smi, **phase_haslr_assemble(tmp))
+        _line("11e mesh consensus, wavefront", card=smi,
+              **phase_mesh_consensus(mesh, windows, wavefront_out, 9,
+                                     "wavefront"))
+
+        _line("12 k-mer counters", card=smi,
+              **phase_kmer_counters(dev, E2E_SCALE, tmp))
+        _line("12b k-mer merge on the mesh, spill", card=smi,
+              mesh=[str(d) for d in mesh.devices],
+              **phase_kmer_sharded(dev, mesh, tmp))
+
+        reset_launches()
+        rec_chunked = phase_chunked(dev, windows, rowscan_out)
+        path_launches["chunked"] = launches()
+        _line("13 chunked consensus", card=smi, **rec_chunked,
+              launches=path_launches["chunked"])
+        for name in ("rowscan_mapping", "wavefront_mapping"):
+            if path_launches["chunked"][name] <= 0:
+                raise AssertionError(f"kernel {name} not launched by the "
+                                     "chunked engine")
 
     return [
         json.dumps({"kernels": [

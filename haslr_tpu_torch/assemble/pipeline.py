@@ -180,7 +180,9 @@ def run_assembler(
     ``long_fofn``/``mapping_fofn`` read the paths as file-of-file-names
     like the reference's ``--long-fofn``/``--mapping-fofn``."""
     cfg = cfg or AssembleConfig()
-    mesh = as_mesh(device, mesh)
+    if cfg.consensus_engine == "tpu":
+        # the host POA engine needs no device
+        mesh = as_mesh(device, mesh)
     os.makedirs(out_dir, exist_ok=True)
     t = StageTimer(log)
     contigs, uniq_freq, lrs, n_aln = _load_inputs(

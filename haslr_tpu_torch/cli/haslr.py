@@ -98,6 +98,7 @@ def assemble_srs(cfg: PipelineConfig, mesh) -> str:
             asm_type=cfg.minia_asm,
             # a mesh of one counts unsharded, as one device does
             mesh=mesh if mesh.size > 1 else None,
+            torch_device=mesh.devices[0],
         )
         _done()
     else:

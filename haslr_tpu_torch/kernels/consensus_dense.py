@@ -44,6 +44,7 @@ import torch
 
 from haslr_tpu_torch.dist.mesh import Mesh, as_mesh
 from haslr_tpu_torch.kernels import nw
+from haslr_tpu_torch.kernels.kmer_stream import pack2
 from haslr_tpu_torch.kernels.nw_rowscan import rowscan_votes
 from haslr_tpu_torch.kernels.nw_wavefront import wavefront_votes
 
@@ -68,18 +69,6 @@ def _band_width(S: int) -> int:
     if S <= 2048:
         return 256
     return 512
-
-
-def pack2(codes: np.ndarray) -> np.ndarray:
-    """2-bit pack (4 codes/byte, LSB-first) for the host->device hop
-    (numpy copy of ``haslr_tpu.kernels.kmer_stream.pack2``)."""
-    n = len(codes)
-    pad = (-n) % 4
-    if pad:
-        codes = np.concatenate([codes, np.zeros(pad, np.uint8)])
-    g = (codes & 3).reshape(-1, 4)
-    return (g[:, 0] | (g[:, 1] << 2) | (g[:, 2] << 4) | (g[:, 3] << 6)) \
-        .astype(np.uint8)
 
 
 def _unpack_rows(flat, offsets, lens, S):

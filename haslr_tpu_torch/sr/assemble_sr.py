@@ -3,13 +3,13 @@
 The port's copy of :mod:`haslr_tpu.sr.assemble_sr`, the minia-stage
 driver (reference ``bin/haslr.py:160-200``: ``minia -kmer-size 49
 -abundance-min 3 -no-ec-removal``).  Counting runs in the native C++
-counter (``native/kmer.cpp``); compaction on host
-(:mod:`haslr_tpu_torch.sr.dbg`).  The reference's device k-mer counters
-(``kernels/kmer.py``, ``kernels/kmer_stream.py``) are not ported yet
-(ROADMAP A7): the branches that reach them raise :class:`RuntimeError`
-here.  Under a ``dp`` mesh the reads are counted in one block a shard
-and merged by :func:`haslr_tpu_torch.kernels.kmer.merge_kmer_counts`,
-as in the reference.
+counter (``native/kmer.cpp``), or on a torch device
+(:mod:`haslr_tpu_torch.kernels.kmer`, :mod:`haslr_tpu_torch.kernels.
+kmer_stream`) where the reference counts on its device; compaction on
+host (:mod:`haslr_tpu_torch.sr.dbg`).  Under a ``dp`` mesh the reads are
+counted in one block a shard and merged by
+:func:`haslr_tpu_torch.kernels.kmer.merge_kmer_counts`, as in the
+reference.
 
 ``asm_type="contigs"`` additionally clips short low-coverage tips from the
 unitig graph before re-compaction (minia's contig-level simplification);
@@ -29,14 +29,6 @@ from haslr_tpu_torch.sr import dbg
 # wall-clock of the last assemble_short_reads call, by phase (count /
 # compact / write); PROF.clear() to reset — mirrors kmer_stream.PROF
 PROF: dict[str, float] = {}
-
-
-def _not_ported(what: str, item: str):
-    return RuntimeError(
-        f"{what} is not ported yet (ROADMAP {item}); the short-read stage "
-        "of haslr_tpu_torch needs the native library "
-        "(haslr_tpu_torch/native, built with g++ -lz) and k <= 64"
-    )
 
 
 def load_read_codes(paths: list[str]) -> np.ndarray:
@@ -215,6 +207,7 @@ def assemble_short_reads(
     streaming: bool | None = None,
     spill_dir: str | None = None,
     mesh=None,
+    torch_device=None,
 ) -> int:
     """SR assembly stage.  Counting-engine selection:
 
@@ -222,10 +215,14 @@ def assemble_short_reads(
       native/kmer.cpp);
     - ``mesh`` set: native host counting per shard + prefix-range merge
       (the multi-host production path, bit-identical to single-host);
-    - ``streaming=True`` (or no native library, or k > 64): the
-      reference's device counters, which the port does not have yet —
-      :class:`RuntimeError`.
-    """
+    - ``streaming=True`` (or no native library): the prefix-partitioned
+      device streaming counter (kept as the device-resident fallback,
+      also mesh-shardable), then the device / numpy counters.
+
+    ``device=False`` takes the numpy counter where a device counter would
+    run.  The device counters run on ``torch_device`` (the card unless
+    the caller says ``"cpu"``), the streaming one over ``mesh`` when
+    one is given."""
     PROF.clear()
     t0 = time.time()
     if streaming is None:
@@ -251,10 +248,28 @@ def assemble_short_reads(
         streaming = device and (total > STREAMING_THRESHOLD
                                 or mesh is not None)
     if streaming:
-        raise _not_ported("the streaming device k-mer counter "
-                          "(kernels/kmer_stream.py)", "A7")
-    raise _not_ported("the device and numpy k-mer counters "
-                      "(kernels/kmer.py)", "A7")
+        from haslr_tpu_torch.kernels import kmer_stream
+        from haslr_tpu_torch.kernels.kmer_stream import count_kmers_streaming
+
+        kmer_stream.PROF.clear()
+        hi, lo, cnt = count_kmers_streaming(
+            iter_read_codes(read_paths), kmer_size, min_abundance,
+            spill_dir=spill_dir, mesh=mesh, device=torch_device,
+        )
+        PROF.update({f"count.{k2}": v
+                     for k2, v in kmer_stream.PROF.items()})
+    else:
+        from haslr_tpu_torch.kernels import kmer as kk
+
+        codes = load_read_codes(read_paths)
+        if device:
+            hi, lo, cnt = kk.count_kmers_device(codes, kmer_size,
+                                                min_abundance,
+                                                device=torch_device)
+        else:
+            hi, lo, cnt = kk.count_kmers_host(codes, kmer_size,
+                                              min_abundance)
+    return _finish(hi, lo, cnt, kmer_size, asm_type, out_fasta, t0)
 
 
 def _finish(hi, lo, cnt, kmer_size, asm_type, out_fasta, t0) -> int:

@@ -325,23 +325,23 @@ def write_unitigs_fasta(unitigs: list[Unitig], path: str):
 
 
 def assemble_unitigs(codes_with_seps: np.ndarray, k: int, min_abundance: int,
-                     device: bool = True, native: bool = True) -> list[Unitig]:
+                     device: bool = True, native: bool = True,
+                     torch_device=None) -> list[Unitig]:
     """Count solid k-mers and compact to unitigs.
 
     Compaction runs in the native C++ walker (same algorithm and iteration
     order as the Python implementation, byte-identical outputs) when the
     library is available; ``native=False`` forces the Python path.
+    ``device=True`` counts on ``torch_device`` (the card unless the
+    caller says ``"cpu"``), ``False`` with the numpy counter."""
+    from haslr_tpu_torch.kernels import kmer as kk
 
-    Not available in the port yet: the counters it calls
-    (``haslr_tpu/kernels/kmer.py``) are ROADMAP A7.  The short-read stage
-    counts with the native library (``sr/assemble_sr.py``) and compacts
-    with :func:`unitigs_from_counts` / :func:`pop_bubbles`."""
-    raise RuntimeError(
-        "assemble_unitigs needs the device / numpy k-mer counters, which "
-        "are not ported yet (ROADMAP A7); count with the native library "
-        "(haslr_tpu_torch.native.count_kmers_native) and call "
-        "unitigs_from_counts"
-    )
+    if device:
+        hi, lo, cnt = kk.count_kmers_device(codes_with_seps, k, min_abundance,
+                                            device=torch_device)
+    else:
+        hi, lo, cnt = kk.count_kmers_host(codes_with_seps, k, min_abundance)
+    return unitigs_from_counts(hi, lo, cnt, k, native=native)
 
 
 def _unitigs_from_native(out) -> list[Unitig]:

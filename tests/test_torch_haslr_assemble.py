@@ -119,3 +119,15 @@ def test_haslr_assemble_takes_the_card_by_default(sim, tmp_path):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         _port(["-c", contig, "-l", lr, "-m", paf, "-d", str(out)])
     assert not out.exists()
+
+
+def test_haslr_assemble_poa_needs_no_card(sim, reference, tmp_path):
+    """The host POA engine runs without ``--device`` where there is no
+    card (the default ``cuda`` is not resolved for it), as the JAX
+    CLI's runs on any host."""
+    contig, lr, paf = sim
+    out = str(tmp_path / "poa")
+    assert _port(["-c", contig, "-l", lr, "-m", paf, "-d", out,
+                  "--consensus-engine", "poa"]) == 0
+    for name in ASM:
+        assert _read(f"{out}/{name}") == reference["poa"][name], name

@@ -49,14 +49,15 @@ PARTIAL = {
          "read_fastx_encoded"],
     ),
     "sr/assemble_sr.py": (
-        "the branches that reach the device / numpy k-mer counters raise "
-        "until those are ported",
+        "assemble_short_reads takes the torch device that the device "
+        "k-mer counters run on",
         ["load_read_codes", "iter_read_codes", "_clip_tips",
          "STREAMING_THRESHOLD", "_load_flat", "_count_native",
          "_count_native_sharded", "_finish"],
     ),
     "sr/dbg.py": (
-        "assemble_unitigs raises: it calls the k-mer counters",
+        "assemble_unitigs takes the torch device that the device k-mer "
+        "counter runs on",
         ["rc_int", "kmer_to_str", "Unitig", "DeBruijnGraph", "_side_links",
          "find_simple_bubbles", "_kmer_ints", "pop_bubbles",
          "write_unitigs_fasta", "_unitigs_from_native",
@@ -83,6 +84,22 @@ PARTIAL = {
         "calc_consensus calls the port's batched_consensus on a torch "
         "device or mesh",
         ["_edge_window_seqs", "_host_poa_windows"],
+    ),
+    "kernels/kmer.py": (
+        "the device counter is the port's own (int64 words of 31 bases, "
+        "torch sorts); merge_kmer_counts saturates (ROADMAP C4, below)",
+        ["SEP", "_pack_pair_np", "_revcomp_pair_np", "count_kmers_host"],
+    ),
+    "kernels/kmer_stream.py": (
+        "the chunk count, the accumulator and the merges are torch ops "
+        "on a device or a torch mesh",
+        ["pack2", "_PartitionStore"],
+    ),
+    "kernels/consensus.py": (
+        "the chunked engine aligns with the port's mapping kernels and "
+        "votes in the port's DevicePileup; batched_consensus takes a "
+        "torch device or mesh",
+        ["BUCKETS", "_bucket_size", "_band_width", "_Pileup"],
     ),
     "cli/haslr.py": (
         "--device beside --devices; the mesh is built once, of --device's "
@@ -164,8 +181,8 @@ def test_every_port_module_is_accounted_for():
     own = {
         "__init__.py", "device.py", "aligner/__init__.py",
         "assemble/__init__.py", "cli/__init__.py", "kernels/__init__.py",
-        "kernels/_build.py", "kernels/consensus.py",
-        "kernels/consensus_dense.py", "kernels/nw.py", "kernels/kmer.py",
+        "kernels/_build.py", "kernels/pileup.py",
+        "kernels/consensus_dense.py", "kernels/nw.py",
         "dist/__init__.py", "dist/mesh.py", "dist/consensus_step.py",
         "cli/haslr_assemble.py",
         "kernels/nw_rowscan.py", "kernels/nw_wavefront.py",

@@ -54,6 +54,8 @@ def test_port_file_list_is_whole():
                 "haslr_tpu_torch/dist/mesh.py",
                 "haslr_tpu_torch/dist/consensus_step.py",
                 "haslr_tpu_torch/kernels/kmer.py",
+                "haslr_tpu_torch/kernels/kmer_stream.py",
+                "haslr_tpu_torch/kernels/pileup.py",
                 "haslr_tpu_torch/cli/haslr_assemble.py"):
         assert rel in PORT_FILES
 
@@ -123,7 +125,9 @@ def _entry_points():
     from haslr_tpu_torch.assemble import consensus, pipeline
     from haslr_tpu_torch.config import AssembleConfig
     from haslr_tpu_torch.kernels import consensus as kcons
-    from haslr_tpu_torch.kernels import consensus_dense, nw, nw_rowscan
+    from haslr_tpu_torch.kernels import consensus_dense, kmer, kmer_stream
+    from haslr_tpu_torch.kernels import nw, nw_rowscan
+    from haslr_tpu_torch.sr import assemble_sr, dbg
 
     codes = [[np.zeros(40, np.uint8)] * 3]
     return {
@@ -147,6 +151,22 @@ def _entry_points():
             nw.align_mapping_device(*_tiny_batch(), **kw),
         "banded_nw_batch": lambda **kw:
             nw.banded_nw_batch(*_tiny_batch(), **kw),
+        "chunked_consensus": lambda **kw: kcons.batched_consensus(
+            [["ACGT" * 10] * 3], engine="chunked", **kw),
+        "count_kmers_device": lambda **kw: kmer.count_kmers_device(
+            np.zeros(40, np.uint8), 21, **kw),
+        "count_kmers_streaming": lambda **kw:
+            kmer_stream.count_kmers_streaming([np.zeros(40, np.uint8)], 21,
+                                              **kw),
+        "assemble_unitigs": lambda **kw: dbg.assemble_unitigs(
+            np.zeros(40, np.uint8), 21, 1,
+            **{"torch_device" if k == "device" else k: v
+               for k, v in kw.items()}),
+        "assemble_short_reads": lambda **kw:
+            assemble_sr.assemble_short_reads(
+                ["never.fa"], "never_out.fa", streaming=True,
+                **{"torch_device" if k == "device" else k: v
+                   for k, v in kw.items()}),
     }
 
 
@@ -154,7 +174,9 @@ ENTRY_POINTS = ["run_assembler", "calc_consensus", "map_reads",
                 "batch_align_segments", "batched_consensus",
                 "dense_consensus", "cigar_runs_device_raw",
                 "align_mapping_device_raw", "align_mapping_device",
-                "banded_nw_batch"]
+                "banded_nw_batch", "chunked_consensus",
+                "count_kmers_device", "count_kmers_streaming",
+                "assemble_unitigs", "assemble_short_reads"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -173,7 +195,11 @@ def test_entry_point_takes_the_card_by_default(name, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", ["batch_align_segments",
                                   "dense_consensus",
                                   "cigar_runs_device_raw",
-                                  "align_mapping_device"])
+                                  "align_mapping_device",
+                                  "chunked_consensus",
+                                  "count_kmers_device",
+                                  "count_kmers_streaming",
+                                  "assemble_unitigs"])
 def test_entry_point_runs_on_cpu_when_asked(name):
     torch.set_num_threads(1)
     assert _entry_points()[name](device="cpu") is not None
