@@ -5,9 +5,10 @@ Phases, one printed line each (any failure raises):
 1. the card (``nvidia-smi`` name and power limit) and the torch device;
 2. build of the CUDA kernels from ``haslr_tpu_torch/csrc`` (one nvcc per
    source, in parallel, sm_90a);
-3. each of the six kernels against its plain PyTorch version on the
-   card, exact: the two vote-plane kernels down to the vote tables at
-   the consensus buckets' shapes; the three row-scan kernels at every
+3. each of the six NW kernels against its plain PyTorch version on the
+   card, exact: the two vote-plane kernels down to the vote tables (V1 on
+   the kernel's planes, the plain tables on the plain planes) at the
+   consensus buckets' shapes; the three row-scan kernels at every
    route of their design (lanes a thread, warps a read: W = 128, 256,
    and 512 at launches on either side of the small-launch limit;
    ragged, empty, out-of-gate and pad rows, the MAXR-overflow batch, and
@@ -21,7 +22,18 @@ Phases, one printed line each (any failure raises):
    byte for byte;
 5. the consensus workload (4096 windows x 13 reads x ~300 bp at 6 %
    error): windows/s on the card beside the native POA on one CPU core,
-   and the card's output equal to the CPU plain path's on 256 windows;
+   the card's output equal to the CPU plain path's on 256 windows, the
+   dense engine's host ``PROF``, and V1 launched once a round and shard;
+5b. the vote-tables kernel V1 against its plain version, exact: on
+   synthetic rounds at every bucket S = 128-65536 (code-4 cells, rows
+   out of the gate or unaligned, empty windows, the inert pad read; a
+   full 65,536-read dispatch at S = 4096, and its tables summed over a
+   two-block split cut inside a window), and on the consensus workload's
+   real planes of both rounds under both NW engines; then at that
+   workload's round (N = 4096, B = 53,248, S = 512) V1's, the plain
+   version's and one ``torch.matmul`` (the reference's segment-matrix
+   product in bf16) median ms of 5 warm calls, the byte bound, and the
+   peak device memory of V1 and the plain version;
 6. the five-stage pipeline (``haslr_tpu_torch.cli.haslr``) end to end on
    a simulated 4.6 Mb genome: stage times, contigs, NG50, interior 31-mer
    recall, the kernel launch counts of that run, and the CIGAR-run
@@ -35,7 +47,8 @@ then the same paths under the wavefront engine (``nw.ENGINE =
    shapes, and how many rows the row-scan engine's mapping differs in;
 8. the golden assembly again, byte for byte;
 9. the consensus workload: windows/s, the card equal to the CPU plain
-   path on 256 windows, and how many windows differ from phase 5's;
+   path on 256 windows, how many windows differ from phase 5's, and V1
+   once a round;
 10. the 4.6 Mb pipeline resumed from phase 6's output without its PAF and
     assembly, so that the aligner and the assembler run again: stage
     times, contigs, NG50, recall, launches, and whether ``asm.final.fa``
@@ -57,6 +70,7 @@ neither a launch on a second card nor a speed-up):
     ``haslr_assemble`` on the golden inputs, equal to phase 4's bytes;
     and the consensus workload under the wavefront engine through the
     mesh, equal to phase 9's output on all 4096 windows (B4 a shard);
+    V1 once a round and shard in 11a and 11e;
 
 then the modules that hold no kernel of their own, or reach one off the
 default path:
@@ -79,7 +93,8 @@ default path:
 
 The bound of a kernel is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its int32 operations on this
-run's inputs over 132 SMs x 64 lanes x 1.98 GHz (``kernel_bound``).
+run's inputs over 132 SMs x 64 lanes x 1.98 GHz (``kernel_bound``; V1:
+``vote_tables_bound``).
 
 Then a JSON line of kernel records, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -99,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = "exact (integer DP scores and vote counts)"
@@ -119,6 +135,9 @@ KERNELS = {
                           "haslr_tpu/kernels/nw_pallas.py:208", "e2e_wf"),
     "wavefront_dirs": ("haslr_tpu_torch/csrc/wavefront.cu",
                        "haslr_tpu/kernels/nw_pallas.py:201", "oracle"),
+    # V1: the reference's XLA reduction, no Pallas kernel there
+    "vote_tables": ("haslr_tpu_torch/csrc/vote_tables.cu",
+                    "haslr_tpu/kernels/consensus_dense.py:401", "e2e"),
 }
 
 
@@ -160,10 +179,22 @@ def kernel_bound(name, r_lens, d_lens, R, D, W, in_bytes, out_bytes):
         else (bytes_ms, "bytes")
 
 
-def _counters():
-    from haslr_tpu_torch.kernels import nw_rowscan, nw_wavefront
+def vote_tables_bound(B, N, S):
+    """``(bound_ms, bound_by)`` of V1 on one round: each plane byte of
+    the 3S+2 used columns, the stats, the ok bytes and the CSR offsets
+    read once, the tables written once; an int32 add a plane byte."""
+    in_bytes = B * (3 * S + 2) + B * 8 + B + (N + 1) * 4
+    out_bytes = N * (3 * S + 2) * 16 + (N * (S + 1) + 1) * 4 + N * 4
+    ops_ms = B * (3 * S + 2) / PEAK_INT32_S * 1e3
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
 
-    return nw_rowscan.LAUNCHES, nw_wavefront.LAUNCHES
+
+def _counters():
+    from haslr_tpu_torch.kernels import nw_rowscan, nw_wavefront, vote_tables
+
+    return nw_rowscan.LAUNCHES, nw_wavefront.LAUNCHES, vote_tables.LAUNCHES
 
 
 def reset_launches():
@@ -173,8 +204,10 @@ def reset_launches():
 
 
 def launches():
-    rs, wf = _counters()
-    return {**rs, **wf}
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
 
 
 @contextlib.contextmanager
@@ -392,14 +425,15 @@ def check_wavefront_shape(dev, R, D, W, B, seed, only=None):
 
 def check_votes(dev, S, W, B, seed, engine="rowscan"):
     """B1 (``engine="rowscan"``) or B4 (``"wavefront"``) on the card vs
-    its plain version: planes, stats and the reduced vote tables, every
-    row (in and out of the gate, pad rows)."""
+    its plain version: planes, stats and the vote tables (V1 on the
+    kernel's planes, the plain tables on the plain planes), every row (in
+    and out of the gate, pad rows)."""
     import numpy as np
     import torch
 
-    from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels import nw_rowscan as rs
     from haslr_tpu_torch.kernels import nw_wavefront as wf
+    from haslr_tpu_torch.kernels import vote_tables as vt
 
     kern, plain = {
         "rowscan": (rs.rowscan_votes, rs.rowscan_votes_plain),
@@ -410,11 +444,13 @@ def check_votes(dev, S, W, B, seed, engine="rowscan"):
     planes_k, stats_k = kern(*args, W, 5, -4, -8)
     planes_p, stats_p = plain(*args, W, 5, -4, -8)
     N = 8
-    win = torch.from_numpy(rng.integers(0, N, B)).to(dev)
+    win_np = np.sort(rng.integers(0, N, B))
+    win = torch.from_numpy(win_np).to(dev)
+    win_ptr = torch.from_numpy(vt.window_rows(win_np, N)).to(dev)
     r_lens, d_lens = args[1], args[3]
     ok = (r_lens > 0) & (d_lens > 0) & ((r_lens - d_lens).abs() < W // 2 - 4)
-    tabs_k = cd._vote_tables(planes_k, stats_k, win, ok, N, S)
-    tabs_p = cd._vote_tables(planes_p, stats_p, win, ok, N, S)
+    tabs_k = vt.vote_tables(planes_k, stats_k, win_ptr, ok, N, S)
+    tabs_p = vt.vote_tables_plain(planes_p, stats_p, win, ok, N, S)
     names = ("counts", "cov_diff", "ins1", "ins2", "n_reads")
     return _max_err(
         [("planes", planes_k, planes_p), ("stats", stats_k, stats_p)]
@@ -559,6 +595,19 @@ def phase_golden(dev, tmp, out_name="golden_asm"):
     return time.time() - t0
 
 
+def check_v1_launches(prof, shards, what, rounds=2):
+    """V1's launches since the last reset, which must be one a round and
+    shard of every dispatch in ``prof`` (the dense engine's ``PROF``):
+    no round's tables came from anywhere else."""
+    n_v1 = launches()["vote_tables"]
+    want = rounds * int(prof.get("n_dispatch", 0)) * shards
+    if n_v1 != want or not want:
+        raise AssertionError(f"{what}: V1 launched {n_v1} times, want "
+                             f"{rounds} rounds x {prof.get('n_dispatch')} "
+                             f"dispatches x {shards} shards")
+    return n_v1
+
+
 def phase_consensus(dev, windows, n_check=256, n_poa=512):
     """Windows/s of the port's consensus on ``dev`` and of the native POA
     on one core; the card's output equals the CPU plain path's on
@@ -567,6 +616,7 @@ def phase_consensus(dev, windows, n_check=256, n_poa=512):
 
     from haslr_tpu_torch import native
     from haslr_tpu_torch.core import seq as cseq
+    from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
     code_wins = [[cseq.encode(s) for s in w] for w in windows[:n_poa]]
@@ -578,10 +628,14 @@ def phase_consensus(dev, windows, n_check=256, n_poa=512):
     batched_consensus(windows[:64], device=dev)  # first-call warm-up
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    reset_launches()
+    cd.PROF.clear()
     with launch_log() as by_bucket:
         t0 = time.time()
         out = batched_consensus(windows, device=dev)
         dt = time.time() - t0
+    prof = dict(cd.PROF)
+    n_v1 = check_v1_launches(prof, 1, "phase 5")
     sub = windows[:n_check]
     on_dev = batched_consensus(sub, device=dev)
     on_cpu = batched_consensus(sub, device="cpu")
@@ -592,9 +646,241 @@ def phase_consensus(dev, windows, n_check=256, n_poa=512):
     return {
         "windows": len(windows), "windows_per_s": len(windows) / dt,
         "seconds": dt, "launches_by_bucket": by_bucket,
+        "vote_tables_launches": n_v1, "prof_s": prof,
         "poa_1core_windows_per_s": poa_rate,
         "poa_windows": len(code_wins), "cpu_plain_equal_windows": n_check,
     }, out
+
+
+# phase 5b's synthetic rounds, (rows B, windows N) by bucket S: at
+# S = 4096 a full dispatch of the dense engine (MAX_READS rows, 13 a
+# window), above it fewer rows as the planes widen
+V1_ROUNDS = {
+    **{S: (2048, 256) for S in (128, 256, 512, 1024, 2048)},
+    4096: (65536, 5041), 8192: (512, 64), 16384: (256, 32),
+    32768: (128, 16), 65536: (64, 8),
+}
+
+
+def synthetic_round(dev, S, B, N, seed):
+    """One round's votes-kernel outputs made on the card from ``seed``,
+    rows sorted by window: planes of codes 0-4 (half of them 4), stats
+    with jmin <= jmax < S (a tenth unaligned: jmax = -1), ok (a tenth out
+    of the gate), only the even windows holding rows, and the last row
+    the dispatch's inert pad read (window N - 1, not ok, all code 4).
+    Returns (planes, stats, win, ok) on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=g, device=dev)
+
+    planes = torch.randint(0, 4, (B, 3 * S + 256), generator=g, device=dev,
+                           dtype=torch.uint8)
+    planes[rand(B, 3 * S + 256) < 0.5] = 4
+    jmin = ints(S, B)
+    jmax = torch.minimum(jmin + ints(S, B), torch.tensor(S - 1, device=dev))
+    none = rand(B) < 0.1
+    jmin[none], jmax[none] = 1 << 29, -1
+    ok = rand(B) >= 0.1
+    win = (2 * ints((N + 1) // 2, B)).sort().values
+    planes[-1], jmin[-1], jmax[-1], ok[-1], win[-1] = 4, 1 << 29, -1, \
+        False, N - 1
+    stats = torch.stack([jmin, jmax], 1).to(torch.int32)
+    return planes, stats, win, ok
+
+
+def _v1_vs_plain(planes, stats, win, win_ptr, ok, N, S, what):
+    """V1 == plain on one round, every table, exact; returns V1's
+    tables."""
+    from haslr_tpu_torch.kernels import vote_tables as vt
+
+    got = vt.vote_tables(planes, stats, win_ptr, ok, N, S)
+    want = vt.vote_tables_plain(planes, stats, win, ok, N, S)
+    names = ("counts", "cov_diff", "ins1", "ins2", "n_reads")
+    _max_err([(f"{n} {what}", a, b) for n, a, b in zip(names, got, want)])
+    return got
+
+
+def profile_consensus(dev, windows, top=10):
+    """One dense consensus call of ``windows`` (row-scan engine) under
+    ``torch.profiler``: the device time of its kernels and copies in all
+    and by name (the ``top`` largest), the call's wall time and the
+    device's idle share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        # one profiling cycle: its note that events clear at a cycle's end
+        warnings.filterwarnings("ignore", message=".*clears events")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            batched_consensus(windows, device=dev)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+    items = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue  # host ops; their kernels are listed on their own
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        items.append([e.key[:80], us / 1e3, e.count])
+    items.sort(key=lambda it: -it[1])
+    device_ms = sum(it[1] for it in items)
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if items else "not measured",
+            "device_idle_share": 1 - device_ms / wall_ms if items
+            else "not measured",
+            "by_kernel_ms_count": items[:top]}
+
+
+def phase_vote_tables(dev, windows, n_med=5):
+    """Phase 5b: V1 == its plain version on synthetic rounds at every
+    bucket (a full 65,536-read dispatch at S = 4096 among them, and its
+    tables summed over a two-block split cut inside a window) and on the
+    consensus workload's real planes of both rounds under both NW
+    engines; then at that workload's first round V1's, the plain
+    version's and the ``torch.matmul`` yardstick's median ms of
+    ``n_med`` warm calls (CUDA events), the bound and the peak memory."""
+    import numpy as np
+    import torch
+
+    from haslr_tpu_torch.kernels import consensus_dense as cd
+    from haslr_tpu_torch.kernels import vote_tables as vt
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    t_start = time.time()
+    rec = {"tolerance": TOL, "buckets_S_B_N": []}
+    def rows_of(win):
+        return torch.from_numpy(vt.window_rows(win.cpu().numpy(), N)).to(dev)
+
+    for S in cd.BUCKETS:
+        B, N = V1_ROUNDS[S]
+        planes, stats, win, ok = synthetic_round(dev, S, B, N, S)
+        whole = _v1_vs_plain(planes, stats, win, rows_of(win), ok, N, S,
+                             f"S={S}")
+        rec["buckets_S_B_N"].append([S, B, N])
+        if S == 4096:  # two blocks, the cut one row into a window
+            ptr = vt.window_rows(win.cpu().numpy(), N)
+            w = int(np.searchsorted(ptr, B // 2, "right")) - 1
+            while ptr[w + 1] - ptr[w] < 2:
+                w += 1
+            at = int(ptr[w]) + 1
+            parts = [_v1_vs_plain(planes[lo:hi], stats[lo:hi], win[lo:hi],
+                                  rows_of(win[lo:hi]), ok[lo:hi], N, S,
+                                  f"S={S} rows {lo}:{hi}")
+                     for lo, hi in ((0, at), (at, B))]
+            _max_err([(f"split at row {at} (window {w})", a + b, c)
+                      for a, b, c in zip(*parts, whole)])
+            rec["split_at_row"] = [at, B, f"window {w}: rows "
+                                   f"{int(ptr[w])}:{int(ptr[w + 1])}"]
+        del planes, stats, win, ok, whole
+        torch.cuda.empty_cache()
+
+    # the workload's real rounds: every call of the dense engine's
+    # tables checked, the first row-scan round kept for the timing
+    rounds, kept = [], []
+    real = cd.vote_tables
+
+    def checked(planes, stats, win_ptr, ok, N, S):
+        win = torch.repeat_interleave(
+            torch.arange(N, device=dev), win_ptr.diff().to(torch.int64))
+        got = _v1_vs_plain(planes, stats, win, win_ptr, ok, N, S,
+                           f"real round {len(rounds)}")
+        rounds.append([S, planes.shape[0], N])
+        if not kept:
+            kept.append((planes, stats, win, win_ptr, ok, N, S))
+        return got
+
+    cd.vote_tables = checked
+    try:
+        for engine in ("rowscan", "wavefront"):
+            with nw_engine(engine):
+                batched_consensus(windows, device=dev)
+    finally:
+        cd.vote_tables = real
+    rec["real_rounds_S_B_N"] = rounds
+    if len(rounds) < 4:
+        raise AssertionError(f"phase 5b saw {len(rounds)} real rounds")
+
+    planes, stats, win, win_ptr, ok, N, S = kept[0]
+    B = planes.shape[0]
+    off1, off2 = vt.plane_offsets(S)
+    cols = torch.cat([planes[:, :S], planes[:, off1 : off1 + S + 1],
+                      planes[:, off2 : off2 + S + 1]], 1)
+    onehot = (cols[:, :, None] == torch.arange(4, device=dev)).to(
+        torch.bfloat16).reshape(B, 4 * (3 * S + 2))
+    del cols
+    seg = torch.zeros((N, B), dtype=torch.bfloat16, device=dev)
+    seg[win, torch.arange(B, device=dev)] = (
+        ok & (stats[:, 1] >= 0)).to(torch.bfloat16)
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(n_med):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    def kernel():
+        return vt.vote_tables(planes, stats, win_ptr, ok, N, S)
+
+    def plain():
+        return vt.vote_tables_plain(planes, stats, win, ok, N, S)
+
+    def library():
+        return torch.matmul(seg, onehot)
+
+    v1_ms, plain_ms, v1_ms2 = median_ms(kernel), median_ms(plain), \
+        median_ms(kernel)
+    lib_ms = median_ms(library)
+    tabs = kernel()
+    by_lib = library().float().round().to(torch.int32)
+    lib_equal = bool(
+        torch.equal(by_lib[:, : 4 * S].reshape(N * S, 4), tabs[0])
+        and torch.equal(by_lib[:, 4 * S : 8 * S + 4].reshape(-1, 4), tabs[2])
+        and torch.equal(by_lib[:, 8 * S + 4 :].reshape(-1, 4), tabs[3]))
+    del by_lib, tabs
+    bound_ms, bound_by = vote_tables_bound(B, N, S)
+    ms = min(v1_ms, v1_ms2)
+    rec["bench_shape"] = {
+        "N": N, "B": B, "S": S, "ms": ms, "ms_turns": [v1_ms, v1_ms2],
+        "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": "torch.matmul(seg (N, B) bf16, onehot (B, 12S+8) bf16)",
+        "library_counts_equal": lib_equal,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / ms,
+        "v1_peak_bytes": peak_bytes(kernel),
+        "plain_peak_bytes": peak_bytes(plain),
+    }
+    rec["max_abs_err"] = 0  # any difference above raised
+    del planes, stats, win, win_ptr, ok, kept, seg, onehot
+    rec["consensus_call_profile"] = profile_consensus(dev, windows)
+    rec["seconds"] = time.time() - t_start
+    return rec
 
 
 def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
@@ -605,17 +891,20 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
     (record, the card's consensus)."""
     import torch
 
+    from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
     with nw_engine("wavefront"):
         batched_consensus(windows[:64], device=dev)  # first-call warm-up
         torch.cuda.synchronize()
         reset_launches()
+        cd.PROF.clear()
         with launch_log() as by_bucket:
             t0 = time.time()
             out = batched_consensus(windows, device=dev)
             dt = time.time() - t0
         n_launch = launches()["wavefront_votes"]
+        n_v1 = check_v1_launches(cd.PROF, 1, "phase 9")
         sub = windows[:n_check]
         on_dev = batched_consensus(sub, device=dev)
         on_cpu = batched_consensus(sub, device="cpu")
@@ -627,7 +916,7 @@ def phase_consensus_wavefront(dev, windows, rowscan_out, n_check=256):
     return {
         "windows": len(windows), "windows_per_s": len(windows) / dt,
         "seconds": dt, "wavefront_votes_launches": n_launch,
-        "launches_by_bucket": by_bucket,
+        "vote_tables_launches": n_v1, "launches_by_bucket": by_bucket,
         "cpu_plain_equal_windows": n_check,
         "windows_differing_from_rowscan": sum(
             a != b for a, b in zip(out, rowscan_out)
@@ -825,16 +1114,20 @@ def phase_mesh_consensus(mesh, windows, want, phase, engine="rowscan"):
     windows/s, the votes kernel's launches (each shard launches its own),
     and the output equal to ``want`` (phase ``phase``'s, one device under
     the same engine) on every window."""
+    from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels.consensus import batched_consensus
 
     kernel = f"{engine}_votes"
     with nw_engine(engine):
         reset_launches()
+        cd.PROF.clear()
         with launch_log() as by_bucket:
             t0 = time.time()
             out = batched_consensus(windows, mesh=mesh)
             dt = time.time() - t0
         n_launch = launches()[kernel]
+        n_v1 = check_v1_launches(cd.PROF, mesh.size,
+                                 f"mesh consensus, {engine}")
     n_diff = sum(a != b for a, b in zip(out, want))
     if n_diff or len(out) != len(want):
         raise AssertionError(f"{engine} mesh consensus differs from phase "
@@ -845,7 +1138,7 @@ def phase_mesh_consensus(mesh, windows, want, phase, engine="rowscan"):
                              f"{n_launch} times")
     return {"windows": len(windows), "windows_per_s": len(windows) / dt,
             "seconds": dt, f"{kernel}_launches": n_launch,
-            "launches_by_bucket": by_bucket,
+            "vote_tables_launches": n_v1, "launches_by_bucket": by_bucket,
             f"windows_equal_to_phase_{phase}": len(windows)}
 
 
@@ -1166,11 +1459,14 @@ def main():
     # the vote planes down to the vote tables; the other outputs of every
     # kernel are held in 3a and 3c
     for S, W in ((512, 128), (1024, 128), (2048, 256), (4096, 512)):
-        check("rowscan_votes", check_votes(dev, S, W, 64, S))
+        err = check_votes(dev, S, W, 64, S)
+        check("rowscan_votes", err)
+        check("vote_tables", err)
     for S, W, B in ((512, 128, 64), (1024, 128, 64), (2048, 256, 32),
                     (4096, 512, 16)):
-        check("wavefront_votes",
-              check_votes(dev, S, W, B, S + 4, "wavefront"))
+        err = check_votes(dev, S, W, B, S + 4, "wavefront")
+        check("wavefront_votes", err)
+        check("vote_tables", err)
     # the extension's S=256 bucket at its own MAXR; every route of the
     # row-scan design, (C, WPR) by W and by B on either side of the
     # small-launch limit; then bands and row widths that run masked or
@@ -1240,7 +1536,7 @@ def main():
     big = time_pair(dev, 16384, 512, 32, 16386,
                     only=("rowscan_cigar", "wavefront_mapping"),
                     with_plain=False)
-    for name in KERNELS:
+    for name in times[512]:
         _line("3b time and bound", kernel=name, card=smi,
               **{f"B2048_S{S}_W128": t[name] for S, t in times.items()},
               **({"B32_S16384_W512": big[name]} if name in big else {}))
@@ -1265,11 +1561,15 @@ def main():
         windows = make_windows(n_windows=4096)
         cons, rowscan_out = phase_consensus(dev, windows)
         _line("5 consensus", device=kind, **cons)
+        v1 = phase_vote_tables(dev, windows)
+        _line("5b vote tables == plain", card=smi, **v1)
+        check("vote_tables", v1["max_abs_err"])
 
         threads = os.cpu_count() or 1
         rec = phase_e2e(dev, E2E_SCALE, threads, tmp)
         _line("6 end to end", device=kind, **rec)
-        _check_e2e(rec, ("rowscan_votes", "rowscan_cigar"), "end to end")
+        _check_e2e(rec, ("rowscan_votes", "rowscan_cigar", "vote_tables"),
+                   "end to end")
         path_launches["e2e"] = rec["launches"]
 
         reset_launches()
@@ -1299,7 +1599,8 @@ def main():
 
         rec_wf = phase_e2e_wavefront(dev, E2E_SCALE, threads, tmp)
         _line("10 end to end, wavefront", device=kind, **rec_wf)
-        _check_e2e(rec_wf, ("wavefront_votes", "wavefront_mapping"),
+        _check_e2e(rec_wf, ("wavefront_votes", "wavefront_mapping",
+                            "vote_tables"),
                    "end to end under the wavefront engine")
         path_launches["e2e_wf"] = rec_wf["launches"]
 
@@ -1319,7 +1620,8 @@ def main():
               **phase_mesh_consensus(mesh, windows, rowscan_out, 5))
         rec_mesh = phase_mesh_e2e(dev, mesh, E2E_SCALE, threads, tmp)
         _line("11b mesh end to end", card=smi, **rec_mesh)
-        _check_e2e(rec_mesh, ("rowscan_votes", "rowscan_cigar"),
+        _check_e2e(rec_mesh, ("rowscan_votes", "rowscan_cigar",
+                              "vote_tables"),
                    "end to end on the mesh")
         _line("11c two-process mapping", card=smi,
               **phase_two_process_mapping(tmp))
@@ -1344,16 +1646,18 @@ def main():
                 raise AssertionError(f"kernel {name} not launched by the "
                                      "chunked engine")
 
+    # the NW kernels at B=2048, S=512, W=128 (no PyTorch call computes a
+    # banded NW); V1 at the consensus workload's round, beside one matmul
+    timed = {**times[512], "vote_tables": v1["bench_shape"]}
     return [
         json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src,
              "replaces": replaces,
              "launches": path_launches[path][name],
              "max_abs_err": errs[name],
-             "ms": times[512][name]["ms"],
-             "plain_ms": times[512][name]["plain_ms"],
-             "bound_ms": times[512][name]["bound_ms"],
-             "bound_by": times[512][name]["bound_by"], "library_ms": None}
+             **{k: timed[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+             "library_ms": timed[name].get("library_ms")}
             for name, (src, replaces, path) in KERNELS.items()
         ]}),
         smi,

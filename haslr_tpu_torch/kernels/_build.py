@@ -34,11 +34,12 @@ _state: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# reads, r_lens, drafts, d_lens, base, dirs (scratch or output), then each
-# entry point's outputs, B, R, D, W, match, mismatch, gap, its own ints,
-# stream.  The row-scan entry points end their ints with the route: C,
-# wpr, reads_per_block; the wavefront ones take the code rows' widths for
-# R and D and end with the band's R and D and the route.
+# The NW entry points take reads, r_lens, drafts, d_lens, base, dirs
+# (scratch or output), then each entry point's outputs, B, R, D, W,
+# match, mismatch, gap, its own ints, stream.  The row-scan entry points
+# end their ints with the route: C, wpr, reads_per_block; the wavefront
+# ones take the code rows' widths for R and D and end with the band's R
+# and D and the route.
 _SIGNATURES = {
     # + planes, stats; + route
     "hx_rowscan_votes": [_P] * 8 + [_I] * 10 + [_P],
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "hx_wavefront_mapping": [_P] * 7 + [_I] * 12 + [_P],
     # + planes, stats
     "hx_wavefront_votes": [_P] * 8 + [_I] * 12 + [_P],
+    # planes, ok, stats, win_ptr, counts, cov, ins1, ins2, n_reads; N, S,
+    # row stride, the insertion planes' offsets; stream
+    "hx_vote_tables": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 

@@ -12,9 +12,11 @@ the device once, and polished there for ``rounds`` rounds; each round:
    rowscan_votes` by default, the wavefront :func:`~haslr_tpu_torch.
    kernels.nw_wavefront.wavefront_votes` under ``"wavefront"`` (the CUDA
    kernel on the card, its plain version on the CPU);
-2. the per-read planes reduce to per-window vote tables with int32
-   ``index_add_`` (exact; the TPU engine used an int8 matmul only because
-   its scatters run per element);
+2. the per-read planes reduce to per-window vote tables
+   (:func:`~haslr_tpu_torch.kernels.vote_tables.vote_tables`: the CUDA
+   kernel V1 on the card, one CTA a window and column tile over the
+   window's rows, whose range each shard's CSR offsets give; its plain
+   version with int32 ``index_add_`` on the CPU);
 3. a majority vote compacts the kept slots into the next draft.
 
 Buckets, band widths, the median-length draft and the admission gate
@@ -39,6 +41,8 @@ TPU relay.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -47,6 +51,7 @@ from haslr_tpu_torch.kernels import nw
 from haslr_tpu_torch.kernels.kmer_stream import pack2
 from haslr_tpu_torch.kernels.nw_rowscan import rowscan_votes
 from haslr_tpu_torch.kernels.nw_wavefront import wavefront_votes
+from haslr_tpu_torch.kernels.vote_tables import vote_tables, window_rows
 
 BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
@@ -80,50 +85,6 @@ def _unpack_rows(flat, offsets, lens, S):
     idx = idx.clamp(0, flat.numel() * 4 - 1)
     vals = (flat[idx >> 2].to(torch.int64) >> ((idx & 3) << 1)) & 3
     return torch.where(valid, vals, 4).to(torch.uint8)
-
-
-def _count_table(plane, win, rows_ok, N, width):
-    """(N * width, 4) int32 counts of plane codes 0-3 per (window,
-    column); rows not ``rows_ok`` and unset cells (code 4) drop."""
-    p = plane.to(torch.int64)
-    col = torch.arange(width, device=p.device)[None, :]
-    cell = (win[:, None] * width + col) * 4 + p
-    dump = N * width * 4
-    cell = torch.where(rows_ok[:, None] & (p < 4), cell, dump).reshape(-1)
-    table = torch.zeros(dump + 1, dtype=torch.int32, device=p.device)
-    table.index_add_(0, cell, torch.ones_like(cell, dtype=torch.int32))
-    return table[:dump].view(N * width, 4)
-
-
-def _vote_tables(planes, stats, win, ok, N, S):
-    """Per-window vote tables from the vote-plane outputs: base counts
-    (N*S, 4), coverage diff (N*(S+1)+1,), 1st/2nd insertion counts
-    (N*(S+1), 4) each, and supporting reads per window (N,).  Same
-    tables as the reference's ``_kernel_vote_tables`` / ``_scatter_votes``
-    (rows are band-compatible reads that aligned at least one base)."""
-    DQ = S + 128
-    jmin = stats[:, 0].to(torch.int64)
-    jmax = stats[:, 1].to(torch.int64)
-    rows_ok = ok & (jmax >= 0)
-    counts = _count_table(planes[:, :S], win, rows_ok, N, S)
-    ins1 = _count_table(planes[:, S : 2 * S + 1], win, rows_ok, N, S + 1)
-    ins2 = _count_table(planes[:, S + DQ : S + DQ + S + 1], win, rows_ok,
-                        N, S + 1)
-
-    dev = planes.device
-    size = N * (S + 1) + 1
-    woff1 = win * (S + 1)
-
-    def in_table(t):
-        return torch.where(rows_ok & (t >= 0) & (t < size), t, size)
-
-    cov = torch.zeros(size + 1, dtype=torch.int32, device=dev)
-    one = torch.ones(win.shape[0], dtype=torch.int32, device=dev)
-    cov.index_add_(0, in_table(woff1 + jmin), one)
-    cov.index_add_(0, in_table(woff1 + jmax + 1), -one)
-    n_reads = torch.zeros(N + 1, dtype=torch.int32, device=dev)
-    n_reads.index_add_(0, torch.where(rows_ok, win, N), one)
-    return counts, cov[:size], ins1, ins2, n_reads[:N]
 
 
 def _best_and_sum(t4):
@@ -198,16 +159,18 @@ def _vote_compact(counts, cov_diff, ins1, ins2, n_reads, drafts, d_lens,
 def _rounds(shards, flat, draft_off, d_lens0, N, S, W, rounds, match,
             mismatch, gap):
     """The multi-round consensus of one dispatch.  ``shards``: one
-    ``(flat, read_off, r_lens, win_idx)`` a non-empty block of reads, on
-    that block's device; ``flat``, ``draft_off``, ``d_lens0`` on the home
-    device, where the tables are summed and the drafts compacted.
+    ``(flat, read_off, r_lens, win_idx, win_ptr)`` a non-empty block of
+    reads sorted by window, on that block's device (``win_ptr``: the
+    block's :func:`window_rows`); ``flat``, ``draft_off``, ``d_lens0`` on
+    the home device, where the tables are summed and the drafts
+    compacted.
     Returns (packed (N, S/4) uint8 final drafts, tail (3, N) int32 rows
     d_lens / overflow / dropped) on the home device."""
     home = flat.device
     votes = rowscan_votes if nw._resolve_engine(None) == "rowscan" \
         else wavefront_votes
-    shards = [(_unpack_rows(fl, ro, rl, S), rl, wi.to(torch.int64))
-              for fl, ro, rl, wi in shards]
+    shards = [(_unpack_rows(fl, ro, rl, S), rl, wi.to(torch.int64), wp)
+              for fl, ro, rl, wi, wp in shards]
     drafts = _unpack_rows(flat, draft_off, d_lens0, S)
     d_lens = d_lens0
     overflow = torch.zeros(N, dtype=torch.int64, device=home)
@@ -216,7 +179,7 @@ def _rounds(shards, flat, draft_off, d_lens0, N, S, W, rounds, match,
         # every shard's kernel and tables are queued before any is summed
         on_dev = {}
         parts = []
-        for reads, r_lens, win in shards:
+        for reads, r_lens, win, win_ptr in shards:
             dev = reads.device
             if dev not in on_dev:
                 on_dev[dev] = (drafts.to(dev), d_lens.to(dev))
@@ -230,8 +193,8 @@ def _rounds(shards, flat, draft_off, d_lens0, N, S, W, rounds, match,
                               torch.ones_like(win))
             planes, stats = votes(reads, r_lens, dr_r, dl_r, W, match,
                                   mismatch, gap)
-            parts.append((drop_r[:N],
-                          *_vote_tables(planes, stats, win, ok, N, S)))
+            parts.append((drop_r[:N], *vote_tables(planes, stats, win_ptr,
+                                                   ok, N, S)))
         # summed over the shards before the max, as the reference's psum
         drop_r, *tables = [sum(t.to(home) for t in ts) for ts in zip(*parts)]
         dropped = torch.maximum(dropped, drop_r)
@@ -424,11 +387,25 @@ def _dense_consensus_work(window_codes, match, mismatch, gap, rounds, warn,
     return [r if r is not None else np.zeros(0, np.uint8) for r in results]
 
 
+# host wall-clock seconds of the dense_consensus calls since the last
+# PROF.clear(), by phase, as the reference keeps them: ``pack`` (a group's
+# host packing), ``n_dispatch`` (groups dispatched), ``dispatch_S{S}_B{B}``
+# (the copies to the devices and the rounds queued; B the group's reads),
+# ``device_S{S}_B{B}`` (the wait for the group's drafts, in the blocking
+# copy back), ``unpack``; read by scripts, reset by the caller
+PROF: dict[str, float] = {}
+
+
+def _prof(key, dt):
+    PROF[key] = PROF.get(key, 0.0) + dt
+
+
 def _dispatch_group(window_codes, drafts0, win_list, S, W, match, mismatch,
                     gap, rounds, mesh):
     """Pack one bucket group, copy it to the mesh's devices (the reads
-    in blocks, one a device) and queue its rounds; returns a pending
-    handle for :func:`_collect_group`."""
+    in blocks, one a device, each with its :func:`window_rows`) and queue
+    its rounds; returns a pending handle for :func:`_collect_group`."""
+    t0 = time.perf_counter()
     parts: list[np.ndarray] = []
     flat_len = 0
     N = len(win_list)
@@ -457,6 +434,14 @@ def _dispatch_group(window_codes, drafts0, win_list, S, W, match, mismatch,
     if not r_lens:  # one inert pad read (r_len 0) keeps shapes non-empty
         read_off, r_lens, win_idx = [0], [0], [N - 1]
     flat = pack2(np.concatenate(parts)) if flat_len else np.zeros(1, np.uint8)
+    # the rows come in window order, so a block's windows are row ranges
+    B = len(r_lens)
+    blocks = [(lo, hi, dev, window_rows(win_idx[lo:hi], N))
+              for (lo, hi), dev in zip(mesh.blocks(B), mesh.devices)
+              if hi > lo]
+    _prof("pack", time.perf_counter() - t0)
+    _prof("n_dispatch", 1)
+    t0 = time.perf_counter()
 
     def put(a, dtype, dev):
         return torch.from_numpy(np.asarray(a, dtype)).to(dev)
@@ -464,26 +449,30 @@ def _dispatch_group(window_codes, drafts0, win_list, S, W, match, mismatch,
     home = mesh.devices[0]
     flat_on = {home: put(flat, np.uint8, home)}
     shards = []
-    for (lo, hi), dev in zip(mesh.blocks(len(r_lens)), mesh.devices):
-        if hi > lo:
-            if dev not in flat_on:
-                flat_on[dev] = put(flat, np.uint8, dev)
-            shards.append((flat_on[dev], put(read_off[lo:hi], np.int64, dev),
-                           put(r_lens[lo:hi], np.int32, dev),
-                           put(win_idx[lo:hi], np.int64, dev)))
+    for lo, hi, dev, win_ptr in blocks:
+        if dev not in flat_on:
+            flat_on[dev] = put(flat, np.uint8, dev)
+        shards.append((flat_on[dev], put(read_off[lo:hi], np.int64, dev),
+                       put(r_lens[lo:hi], np.int32, dev),
+                       put(win_idx[lo:hi], np.int64, dev),
+                       put(win_ptr, np.int32, dev)))
     packed, tail = _rounds(
         shards, flat_on[home], put(draft_off, np.int64, home),
         put(d_lens0, np.int32, home), N, S, W, rounds, match, mismatch,
         gap,
     )
-    return packed, tail, win_list, S, n_skipped_long
+    _prof(f"dispatch_S{S}_B{B}", time.perf_counter() - t0)
+    return packed, tail, win_list, S, B, n_skipped_long
 
 
 def _collect_group(pending, results, warn):
     """Copy one dispatched group's drafts back and unpack its windows."""
-    packed, tail, win_list, S, n_skipped_long = pending
+    packed, tail, win_list, S, B, n_skipped_long = pending
+    t0 = time.perf_counter()
     packed = packed.cpu().numpy()
     d_lens, overflow, dropped = tail.cpu().numpy()
+    _prof(f"device_S{S}_B{B}", time.perf_counter() - t0)
+    t0 = time.perf_counter()
     n_over = int((overflow > 0).sum())
     if n_over and warn is not None:
         warn(
@@ -500,3 +489,4 @@ def _collect_group(pending, results, warn):
         )
     for li, wi in enumerate(win_list):
         results[wi] = _unpack_host(packed[li], int(d_lens[li]))
+    _prof("unpack", time.perf_counter() - t0)

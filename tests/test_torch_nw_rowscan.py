@@ -11,8 +11,8 @@ import jax.numpy as jnp
 
 from haslr_tpu.kernels import consensus_dense as cd
 from haslr_tpu.kernels import nw_rowscan as rs
-from haslr_tpu_torch.kernels import consensus_dense as pcd
 from haslr_tpu_torch.kernels import nw_rowscan as prs
+from haslr_tpu_torch.kernels import vote_tables as pvt
 
 from test_nw_rowscan import _mutated_batch
 
@@ -109,8 +109,8 @@ def _window_batch(seed, B, S, W, N=8):
 
 @pytest.mark.parametrize("W", WIDTHS)
 def test_vote_tables_match_mapping_scatter(W):
-    """Port: plain vote planes reduced with index_add_.  Reference: XLA
-    row-scan mapping + ``consensus_dense._scatter_votes``."""
+    """Port: plain vote planes reduced by ``vote_tables_plain``.
+    Reference: XLA row-scan mapping + ``consensus_dense._scatter_votes``."""
     S = 2 * W
     B = 32
     reads, r_lens, dr_r, dl_r, win_idx, N = _window_batch(W + 1, B, S, W)
@@ -121,8 +121,9 @@ def test_vote_tables_match_mapping_scatter(W):
                             jnp.asarray(ok), N, S)
     ta = tuple(torch.from_numpy(a) for a in (reads, r_lens, dr_r, dl_r))
     planes, stats = prs.rowscan_votes(*ta, W, 5, -4, -8)
-    got = pcd._vote_tables(planes, stats, torch.from_numpy(win_idx).long(),
-                           torch.from_numpy(ok), N, S)
+    got = pvt.vote_tables_plain(planes, stats,
+                                torch.from_numpy(win_idx).long(),
+                                torch.from_numpy(ok), N, S)
     for name, a, b in zip(("counts", "cov_diff", "ins1", "ins2", "n_reads"),
                           ref, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), name)

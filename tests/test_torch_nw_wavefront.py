@@ -14,10 +14,10 @@ import jax.numpy as jnp
 from haslr_tpu.kernels import consensus_dense as cd
 from haslr_tpu.kernels import nw
 from haslr_tpu.kernels import nw_pallas
-from haslr_tpu_torch.kernels import consensus_dense as pcd
 from haslr_tpu_torch.kernels import nw as pnw
 from haslr_tpu_torch.kernels import nw_rowscan as prs
 from haslr_tpu_torch.kernels import nw_wavefront as pwf
+from haslr_tpu_torch.kernels import vote_tables as pvt
 
 from test_torch_nw_rowscan import _batch, _in_gate, _window_batch
 
@@ -112,8 +112,8 @@ def test_plain_votes_match_pallas_interpret():
 
 @pytest.mark.parametrize("W", (128, 256, 512))
 def test_vote_tables_match_mapping_scatter(W):
-    """Port: wavefront vote planes reduced with index_add_.  Reference:
-    XLA wavefront mapping + ``consensus_dense._scatter_votes``."""
+    """Port: wavefront vote planes reduced by ``vote_tables_plain``.
+    Reference: XLA wavefront mapping + ``consensus_dense._scatter_votes``."""
     S = 2 * W
     reads, r_lens, dr_r, dl_r, win_idx, N = _window_batch(W + 5, 32, S, W)
     ok = _in_gate(r_lens, dl_r, W)
@@ -123,8 +123,9 @@ def test_vote_tables_match_mapping_scatter(W):
                             jnp.asarray(ok), N, S)
     ta = tuple(torch.from_numpy(a) for a in (reads, r_lens, dr_r, dl_r))
     planes, stats = pwf.wavefront_votes(*ta, W, 5, -4, -8)
-    got = pcd._vote_tables(planes, stats, torch.from_numpy(win_idx).long(),
-                           torch.from_numpy(ok), N, S)
+    got = pvt.vote_tables_plain(planes, stats,
+                                torch.from_numpy(win_idx).long(),
+                                torch.from_numpy(ok), N, S)
     for name, a, b in zip(("counts", "cov_diff", "ins1", "ins2", "n_reads"),
                           ref, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), name)
