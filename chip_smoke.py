@@ -28,12 +28,23 @@ Phases, one printed line each (any failure raises):
    synthetic rounds at every bucket S = 128-65536 (code-4 cells, rows
    out of the gate or unaligned, empty windows, the inert pad read; a
    full 65,536-read dispatch at S = 4096, and its tables summed over a
-   two-block split cut inside a window), and on the consensus workload's
-   real planes of both rounds under both NW engines; then at that
-   workload's round (N = 4096, B = 53,248, S = 512) V1's, the plain
-   version's and one ``torch.matmul`` (the reference's segment-matrix
-   product in bf16) median ms of 5 warm calls, the byte bound, and the
-   peak device memory of V1 and the plain version;
+   two-block split cut inside a window; a synthetic round of the
+   consensus workload's shape), each timed; on rounds at the edges of
+   V1's design (one window holding every row, deeper than the 8-bit
+   counters and the ring, at S = 512 and at the column-tiled S = 4096,
+   and that round split in two inside the window; deep windows among
+   empty ones at S = 512 and 8192; N no multiple of the persistent
+   grid), and on the consensus workload's real planes of both rounds
+   under both NW engines; V1's launch plan by bucket (tile, rows a
+   stage, grid, CTAs an SM, shared memory) and ptxas's report; then at
+   that workload's round (N = 4096, B = 53,248, S = 512) V1's and one
+   ``torch.matmul``'s (the reference's segment-matrix product in bf16)
+   ms a launch (the median of 5 windows of 50 launches queued back to
+   back behind a spin that holds the card until they are queued; 10 for
+   the matmul), V1's median ms of 5 single calls (the
+   host's time to the launch included) and its host µs a call, the
+   plain version's median ms, the byte bound, and the peak device
+   memory of V1 and the plain version;
 6. the five-stage pipeline (``haslr_tpu_torch.cli.haslr``) end to end on
    a simulated 4.6 Mb genome: stage times, contigs, NG50, interior 31-mer
    recall, the kernel launch counts of that run, and the CIGAR-run
@@ -101,6 +112,12 @@ as the last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device, the CUDA toolkit (nvcc) and g++; exits non-zero without them.
 
 Usage: python3 chip_smoke.py
+
+``python3 chip_smoke.py --v1 [ROOT]`` runs only phase 5b's synthetic
+rounds, held equal to the plain version and timed, with the
+``haslr_tpu_torch`` package found in ROOT (this checkout by default), so
+that two versions of V1 can be timed in turns on one card; it prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -662,13 +679,30 @@ V1_ROUNDS = {
 }
 
 
-def synthetic_round(dev, S, B, N, seed):
+# phase 5b's rounds at the edges of V1's design, (S, rows of each
+# window): one window holding every row, deeper than the 8-bit counters
+# (255 rows) and than the ring (2 stages of 16 rows), at a whole-window
+# tile (S = 512) and a column-tiled bucket (S = 4096, 8 tiles); deep
+# windows among empty ones and windows cut at the chunks' edges (1, 16,
+# 17, 32, 33 rows)
+V1_EDGE_ROUNDS = {
+    "one_deep_window_S512": (512, [0, 0, 0, 700, 0, 0, 0]),
+    "one_deep_window_S4096": (4096, [0, 0, 300, 0, 0]),
+    "deep_among_empty_S512": (512, [0, 257, 0, 0, 1, 16, 17, 0, 1000, 32,
+                                    33, 0, 0, 513, 0, 0]),
+    "deep_among_empty_S8192": (8192, [0, 300, 0, 17, 0, 0, 33, 0]),
+}
+
+
+def synthetic_round(dev, S, B, N, seed, sizes=None):
     """One round's votes-kernel outputs made on the card from ``seed``,
     rows sorted by window: planes of codes 0-4 (half of them 4), stats
     with jmin <= jmax < S (a tenth unaligned: jmax = -1), ok (a tenth out
     of the gate), only the even windows holding rows, and the last row
     the dispatch's inert pad read (window N - 1, not ok, all code 4).
-    Returns (planes, stats, win, ok) on ``dev``."""
+    With ``sizes`` (rows of each of the N windows; B their sum) the rows
+    fall into the windows so, and there is no pad read.  Returns (planes,
+    stats, win, ok) on ``dev``."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -687,11 +721,29 @@ def synthetic_round(dev, S, B, N, seed):
     none = rand(B) < 0.1
     jmin[none], jmax[none] = 1 << 29, -1
     ok = rand(B) >= 0.1
-    win = (2 * ints((N + 1) // 2, B)).sort().values
-    planes[-1], jmin[-1], jmax[-1], ok[-1], win[-1] = 4, 1 << 29, -1, \
-        False, N - 1
+    if sizes is not None:
+        win = torch.repeat_interleave(
+            torch.arange(N, device=dev), torch.tensor(sizes, device=dev))
+    else:
+        win = (2 * ints((N + 1) // 2, B)).sort().values
+        planes[-1], jmin[-1], jmax[-1], ok[-1], win[-1] = 4, 1 << 29, -1, \
+            False, N - 1
     stats = torch.stack([jmin, jmax], 1).to(torch.int32)
     return planes, stats, win, ok
+
+
+def ptxas_of(kernel):
+    """ptxas's report (registers, shared memory, spills) of the kernels
+    whose mangled name holds ``kernel``, from the build's log."""
+    from haslr_tpu_torch.kernels import _build
+
+    out, take = [], False
+    for ln in _build.build_info()[1].splitlines():
+        if "Compiling entry function" in ln:
+            take = kernel in ln
+        elif take and ("Used" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def _v1_vs_plain(planes, stats, win, win_ptr, ok, N, S, what):
@@ -743,32 +795,106 @@ def profile_consensus(dev, windows, top=10):
             "by_kernel_ms_count": items[:top]}
 
 
-def phase_vote_tables(dev, windows, n_med=5):
-    """Phase 5b: V1 == its plain version on synthetic rounds at every
-    bucket (a full 65,536-read dispatch at S = 4096 among them, and its
-    tables summed over a two-block split cut inside a window) and on the
-    consensus workload's real planes of both rounds under both NW
-    engines; then at that workload's first round V1's, the plain
-    version's and the ``torch.matmul`` yardstick's median ms of
-    ``n_med`` warm calls (CUDA events), the bound and the peak memory."""
+def rows_of(win, N):
+    """``window_rows`` of the windows ``win`` (a tensor), on its device."""
+    import torch
+
+    from haslr_tpu_torch.kernels import vote_tables as vt
+
+    return torch.from_numpy(vt.window_rows(win.cpu().numpy(), N)).to(
+        win.device)
+
+
+def v1_launch_ms(fn, n=50, turns=5, hold_cycles=20_000_000):
+    """V1's (or another call's) ms a launch on the card: ``turns``
+    windows of ``n`` warm calls queued back to back between two CUDA
+    events, the median window's ms over ``n``; returns (ms, every
+    window's).  Each window waits on the card behind a spin of
+    ``hold_cycles`` clocks (~10 ms), so that the host has queued its
+    calls before the first starts and a call faster than the host's
+    time to launch it is timed as the card runs it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(turns):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[turns // 2], times
+
+
+def one_call_ms(fn, n_med=5):
+    """One call's ms between two CUDA events on an idle card, median of
+    ``n_med`` warm calls: the host's time to the launch counts."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n_med):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[n_med // 2]
+
+
+def host_us(fn, n=50):
+    """The host's µs a call while the card is kept busy: ``n`` calls
+    queued back to back, timed on the host's clock up to the last
+    launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def v1_rounds(dev):
+    """V1 == its plain version on the synthetic rounds at every bucket
+    (``V1_ROUNDS``; at S = 4096 also its tables summed over a two-block
+    split cut inside a window) and on a synthetic round of the consensus
+    workload's shape (4096 windows of 13 rows, S = 512), each timed
+    (:func:`v1_launch_ms`) beside ``vote_tables_bound``.  Uses only the
+    wrapper's ``vote_tables``, ``vote_tables_plain`` and ``window_rows``.
+    """
     import numpy as np
     import torch
 
     from haslr_tpu_torch.kernels import consensus_dense as cd
     from haslr_tpu_torch.kernels import vote_tables as vt
-    from haslr_tpu_torch.kernels.consensus import batched_consensus
 
-    t_start = time.time()
-    rec = {"tolerance": TOL, "buckets_S_B_N": []}
-    def rows_of(win):
-        return torch.from_numpy(vt.window_rows(win.cpu().numpy(), N)).to(dev)
-
-    for S in cd.BUCKETS:
-        B, N = V1_ROUNDS[S]
-        planes, stats, win, ok = synthetic_round(dev, S, B, N, S)
-        whole = _v1_vs_plain(planes, stats, win, rows_of(win), ok, N, S,
-                             f"S={S}")
-        rec["buckets_S_B_N"].append([S, B, N])
+    rec = {"tolerance": TOL, "buckets_S_B_N": [], "ms_by_S": {}}
+    rounds = [(S, *V1_ROUNDS[S], None, f"S={S}") for S in cd.BUCKETS]
+    rounds.append((512, 13 * 4096, 4096, [13] * 4096, "consensus_shape"))
+    for S, B, N, sizes, name in rounds:
+        planes, stats, win, ok = synthetic_round(dev, S, B, N, S, sizes)
+        win_ptr = rows_of(win, N)
+        whole = _v1_vs_plain(planes, stats, win, win_ptr, ok, N, S, name)
+        ms, turns = v1_launch_ms(
+            lambda: vt.vote_tables(planes, stats, win_ptr, ok, N, S))
+        bound_ms = vote_tables_bound(B, N, S)[0]
+        if sizes is None:
+            rec["buckets_S_B_N"].append([S, B, N])
+        rec["ms_by_S"][name] = {"N": N, "B": B, "ms": ms, "ms_turns": turns,
+                                "bound_ms": bound_ms,
+                                "share_of_bound": bound_ms / ms}
         if S == 4096:  # two blocks, the cut one row into a window
             ptr = vt.window_rows(win.cpu().numpy(), N)
             w = int(np.searchsorted(ptr, B // 2, "right")) - 1
@@ -776,7 +902,7 @@ def phase_vote_tables(dev, windows, n_med=5):
                 w += 1
             at = int(ptr[w]) + 1
             parts = [_v1_vs_plain(planes[lo:hi], stats[lo:hi], win[lo:hi],
-                                  rows_of(win[lo:hi]), ok[lo:hi], N, S,
+                                  rows_of(win[lo:hi], N), ok[lo:hi], N, S,
                                   f"S={S} rows {lo}:{hi}")
                      for lo, hi in ((0, at), (at, B))]
             _max_err([(f"split at row {at} (window {w})", a + b, c)
@@ -785,6 +911,57 @@ def phase_vote_tables(dev, windows, n_med=5):
                                    f"{int(ptr[w])}:{int(ptr[w + 1])}"]
         del planes, stats, win, ok, whole
         torch.cuda.empty_cache()
+    return rec
+
+
+def phase_vote_tables(dev, windows, n_med=5):
+    """Phase 5b: :func:`v1_rounds` (every bucket, timed); V1 == its plain
+    version on the design's edge rounds (``V1_EDGE_ROUNDS``, a deep
+    window's split, N no multiple of the grid) and on the consensus
+    workload's real planes of both rounds under both NW engines; then at
+    that workload's first round V1's and the ``torch.matmul``
+    yardstick's ms a launch (:func:`v1_launch_ms`), V1's and the plain
+    version's median ms of ``n_med`` single calls (:func:`one_call_ms`),
+    the host's µs a V1 call, the bound, the launch plan by bucket,
+    ptxas's report and the peak memory."""
+    import numpy as np
+    import torch
+
+    from haslr_tpu_torch.kernels import consensus_dense as cd
+    from haslr_tpu_torch.kernels import vote_tables as vt
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    t_start = time.time()
+    rec = v1_rounds(dev)
+    rec["plan_by_S"] = {S: vt.launch_plan(V1_ROUNDS[S][1], S, dev)
+                        for S in cd.BUCKETS}
+
+    # the design's edges: deep windows (one holding every row, then a
+    # two-block split cut inside it), empty ones among them, and N not a
+    # multiple of the persistent grid
+    grid = vt.launch_plan(1 << 20, 512, dev)["grid"]
+    rng = np.random.default_rng(5)
+    edges = {**V1_EDGE_ROUNDS, "n_off_grid_S512": (
+        512, rng.integers(0, 30, 3 * grid + 7).tolist())}
+    rec["edge_rounds_S_B_N"] = {}
+    for i, (name, (S, sizes)) in enumerate(edges.items()):
+        B, N = sum(sizes), len(sizes)
+        planes, stats, win, ok = synthetic_round(dev, S, B, N, 100 + i,
+                                                 sizes)
+        whole = _v1_vs_plain(planes, stats, win, rows_of(win, N), ok, N, S,
+                             name)
+        rec["edge_rounds_S_B_N"][name] = [S, B, N]
+        if name == "one_deep_window_S4096":
+            at = B // 2
+            parts = [_v1_vs_plain(planes[lo:hi], stats[lo:hi], win[lo:hi],
+                                  rows_of(win[lo:hi], N), ok[lo:hi], N, S,
+                                  f"{name} rows {lo}:{hi}")
+                     for lo, hi in ((0, at), (at, B))]
+            _max_err([(f"{name} split at row {at}", a + b, c)
+                      for a, b, c in zip(*parts, whole)])
+            rec["edge_split_at_row"] = [name, at, B]
+        del planes, stats, win, ok, whole
+    rec["n_off_grid"] = {"grid": grid, "N": len(edges["n_off_grid_S512"][1])}
 
     # the workload's real rounds: every call of the dense engine's
     # tables checked, the first row-scan round kept for the timing
@@ -824,19 +1001,6 @@ def phase_vote_tables(dev, windows, n_med=5):
     seg[win, torch.arange(B, device=dev)] = (
         ok & (stats[:, 1] >= 0)).to(torch.bfloat16)
 
-    def median_ms(fn):
-        fn()
-        times = []
-        for _ in range(n_med):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
     def peak_bytes(fn):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
@@ -854,9 +1018,9 @@ def phase_vote_tables(dev, windows, n_med=5):
     def library():
         return torch.matmul(seg, onehot)
 
-    v1_ms, plain_ms, v1_ms2 = median_ms(kernel), median_ms(plain), \
-        median_ms(kernel)
-    lib_ms = median_ms(library)
+    ms, turns = v1_launch_ms(kernel)
+    plain_ms = one_call_ms(plain, n_med)
+    lib_ms = v1_launch_ms(library, n=10)[0]
     tabs = kernel()
     by_lib = library().float().round().to(torch.int32)
     lib_equal = bool(
@@ -865,9 +1029,10 @@ def phase_vote_tables(dev, windows, n_med=5):
         and torch.equal(by_lib[:, 8 * S + 4 :].reshape(-1, 4), tabs[3]))
     del by_lib, tabs
     bound_ms, bound_by = vote_tables_bound(B, N, S)
-    ms = min(v1_ms, v1_ms2)
     rec["bench_shape"] = {
-        "N": N, "B": B, "S": S, "ms": ms, "ms_turns": [v1_ms, v1_ms2],
+        "N": N, "B": B, "S": S, "ms": ms, "ms_turns": turns,
+        "ms_one_call": one_call_ms(kernel, n_med),
+        "host_us_a_call": host_us(kernel),
         "plain_ms": plain_ms, "library_ms": lib_ms,
         "library": "torch.matmul(seg (N, B) bf16, onehot (B, 12S+8) bf16)",
         "library_counts_equal": lib_equal,
@@ -875,6 +1040,8 @@ def phase_vote_tables(dev, windows, n_med=5):
         "share_of_bound": bound_ms / ms,
         "v1_peak_bytes": peak_bytes(kernel),
         "plain_peak_bytes": peak_bytes(plain),
+        "plan": vt.launch_plan(N, S, dev),
+        "ptxas": ptxas_of("vote_tables_kernel"),
     }
     rec["max_abs_err"] = 0  # any difference above raised
     del planes, stats, win, win_ptr, ok, kept, seg, onehot
@@ -1707,7 +1874,26 @@ def stop_children():
     return left
 
 
+def main_v1(root):
+    """``--v1``: phase 5b's synthetic rounds with the package in
+    ``root``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke run needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.abspath(root))
+    from haslr_tpu_torch.kernels import vote_tables as vt
+
+    rec = v1_rounds(torch.device("cuda"))
+    _line("v1 rounds", card=_smi(), package=os.path.dirname(vt.__file__),
+          **rec)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--v1"]:
+        main_v1(sys.argv[2] if len(sys.argv) > 2 else ROOT)
+        raise SystemExit(0)
     try:
         last_lines = main()
     finally:

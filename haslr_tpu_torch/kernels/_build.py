@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 
 # (entry points by name, seconds the build took — 0.0 when every library
 # came from the cache, nvcc's stderr with the ptxas register/shared-memory
-# report)
+# report, kept beside each library so that a cached one still has it)
 _state: dict = {}
 
 _P = ctypes.c_void_p
@@ -55,6 +55,8 @@ _SIGNATURES = {
     # planes, ok, stats, win_ptr, counts, cov, ins1, ins2, n_reads; N, S,
     # row stride, the insertion planes' offsets; stream
     "hx_vote_tables": [_P] * 9 + [_I] * 5 + [_P],
+    # N, S; out (7 int32)
+    "hx_vote_tables_plan": [_I] * 2 + [_P],
 }
 
 
@@ -108,8 +110,10 @@ def lib() -> dict:
     for src, so, tmp, proc in jobs:  # wait for all before raising
         _out, err = proc.communicate()
         if proc.returncode == 0:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(err)
+            os.replace(f"{tmp}.log", f"{so}.log")
             os.replace(tmp, so)
-            logs.append(err)
         else:
             if os.path.exists(tmp):
                 os.remove(tmp)
@@ -119,6 +123,9 @@ def lib() -> dict:
         raise RuntimeError("\n".join(failed))
     fns = {}
     for so in targets:
+        if os.path.isfile(f"{so}.log"):  # also for a library built before
+            with open(f"{so}.log") as f:
+                logs.append(f.read())
         cdll = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(cdll, name, None)

@@ -13,14 +13,19 @@ is no vote.
 
 :func:`vote_tables` takes :func:`vote_tables_plain` (int32 ``index_add_``
 scatters) for CPU tensors and launches ``hx_vote_tables``
-(``csrc/vote_tables.cu``: one CTA a window and tile of columns, no
-atomics) for CUDA tensors, or raises; there is no fallback between the
-two.  The kernel reads each window's rows as a range of the rows sorted
-by window, given as CSR offsets (:func:`window_rows`, made on the host
-where the dense engine packs the rows in window order).
+(``csrc/vote_tables.cu``: persistent CTAs over (window, column tile)
+items, each item's rows brought into a shared-memory ring by bulk
+copies, counted in packed 8-bit counters widened after every chunk of
+rows, and its table rows written back by bulk stores) for CUDA tensors,
+or raises; there is no fallback between the two.  The kernel reads each
+window's rows as a range of the rows sorted by window, given as CSR
+offsets (:func:`window_rows`, made on the host where the
+dense engine packs the rows in window order).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -98,19 +103,23 @@ def vote_tables_plain(planes, stats, win, ok, N, S):
 
 
 def _check_cuda_args(planes, stats, win_ptr, ok, N, S):
+    # the kernel's column tiles are whole windows up to S = 512, else
+    # 512 columns, and its bulk copies move multiples of 16 bytes
+    if S <= 0 or S % 16 or (S > 512 and S % 512):
+        raise ValueError(f"the vote-tables kernel takes S a multiple of 16, "
+                         f"and of 512 above it (got S={S})")
     dev = planes.device
     B = planes.shape[0]
-    if S <= 0 or S % 4 or N < 1:
-        raise ValueError(f"the vote-tables kernel takes S a multiple of 4 "
-                         f"and N >= 1 (got S={S}, N={N})")
+    if N < 1:
+        raise ValueError(f"the vote-tables kernel takes N >= 1 (got {N})")
     if planes.dtype != torch.uint8 or planes.dim() != 2 \
             or planes.shape[1] != 3 * S + 256 or planes.stride(1) != 1 \
-            or planes.stride(0) % 4 or planes.data_ptr() % 4:
+            or planes.stride(0) % 16 or planes.data_ptr() % 16:
         raise ValueError(
             f"planes: want uint8 rows of 3S+256 = {3 * S + 256} contiguous "
-            "columns, row stride and storage 4-byte aligned; got "
-            f"{planes.dtype} {tuple(planes.shape)} strides "
-            f"{planes.stride()}")
+            "columns, row stride and storage 16-byte aligned (the bulk "
+            f"copies); got {planes.dtype} {tuple(planes.shape)} strides "
+            f"{planes.stride()} at {planes.data_ptr() % 16} past 16")
     for name, t, dtype, shape in (
         ("stats", stats, torch.int32, (B, 2)),
         ("ok", ok, torch.bool, (B,)),
@@ -179,3 +188,20 @@ def vote_tables(planes, stats, win_ptr, ok, N, S):
             # W 0: the reduction has no band
             log.append(("vote_tables", planes.shape[0], S, 0, t0, t1))
     return counts, cov, ins1, ins2, n_reads
+
+
+def launch_plan(N, S, device=None):
+    """The kernel's launch at N windows of width S on ``device`` (a CUDA
+    device; the current one by default): the persistent grid, CTAs an SM,
+    dynamic shared memory a CTA, threads a CTA, ring stages, the column
+    tile of a work item and the rows a stage."""
+    from haslr_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = _build.lib()["hx_vote_tables_plan"](N, S,
+                                                  ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"vote_tables plan failed: CUDA error {err}")
+    return dict(zip(("grid", "ctas_per_sm", "smem_bytes", "threads",
+                     "stages", "tile", "chunk_rows"), out))

@@ -1,9 +1,15 @@
 """The port's per-window vote tables (``kernels/vote_tables.py``) against
 the JAX package's ``consensus_dense._kernel_vote_tables``, exact on all
 five tables; the host CSR row offsets the CUDA kernel reads; the tables'
-sum over a two-block split; a numpy mirror of the kernel's loop over a
-window's row range; and the dense engine's ``PROF``.  Inputs are seeded
-numpy planes and stats, handed to both packages."""
+sum over a two-block split; a numpy mirror of the kernel's decomposition
+(persistent work items of (window, column tile), chunks of rows, packed
+8-bit counts widened after each chunk) at whole-window and column-tiled
+widths, deep and empty windows; the wrapper's refusals; and the dense
+engine's ``PROF``.  Inputs are seeded numpy planes and stats, handed to
+both packages."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -16,6 +22,11 @@ from haslr_tpu_torch.kernels import consensus_dense as pcd
 from haslr_tpu_torch.kernels import vote_tables as pvt
 
 NAMES = ("counts", "cov_diff", "ins1", "ins2", "n_reads")
+# the kernel's widest column tile and rows a ring stage
+# (``csrc/vote_tables.cu`` kMaxTile, kChunk), which the mirror follows
+MAX_TILE, CHUNK = 512, 16
+KERNEL_SRC = os.path.join(os.path.dirname(pvt.__file__), os.pardir,
+                          "csrc", "vote_tables.cu")
 CASES = ("code4", "not_ok", "jmax_neg", "empty_windows", "pad_read",
          "one_window")
 
@@ -86,43 +97,154 @@ def test_plain_matches_reference(S, case):
     _assert_tables(got, pvt.vote_tables(p, s, wp, o, N, S))
 
 
-def _kernel_mirror(planes, stats, ok, win_ptr, N, S):
-    """The CUDA kernel's arithmetic in numpy: per window, the rows of its
-    CSR range; per plane, 32-bit words of four columns at the plane's
-    offset (the last word of an insertion plane reaching past its S+1
-    columns); the coverage from the stats on the first insertion plane's
-    columns; the last coverage slot 0."""
+def _tally(words, use):
+    """The kernel's byte-parallel count of one chunk: ``words`` (rows, n)
+    uint32 of four plane bytes, ``use`` (rows,) the voting rows.  Returns
+    (4, n) uint32, byte k of row v counting byte k equal to v.  A byte
+    votes when its top six bits are 0."""
+    high = words & np.uint32(0xFCFCFCFC)
+    nonzero = ((high & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F)) \
+        | high
+    votes = (~nonzero >> np.uint32(7)) \
+        & np.where(use, np.uint32(0x01010101), np.uint32(0))[:, None]
+    b0 = words & np.uint32(0x01010101)
+    b1 = (words >> np.uint32(1)) & np.uint32(0x01010101)
+    return np.stack([(votes & ~(b0 | b1)).sum(0, dtype=np.uint32),
+                     (votes & b0 & ~b1).sum(0, dtype=np.uint32),
+                     (votes & ~b0 & b1).sum(0, dtype=np.uint32),
+                     (votes & b0 & b1).sum(0, dtype=np.uint32)])
+
+
+def _kernel_mirror(planes, stats, ok, win_ptr, N, S, grid=3, chunk=CHUNK):
+    """The CUDA kernel's decomposition in numpy: work items (window,
+    column tile of min(S, MAX_TILE) columns) taken by ``grid`` persistent
+    CTAs in strides; each item's rows in chunks of ``chunk`` as the ring's
+    stages hold them (the plane segments of the bulk copies, an
+    insertion plane's TC + 16 bytes); per chunk the packed 8-bit counts
+    of four-column words (:func:`_tally`), widened into the item's int32
+    rows; the coverage of the tile's columns from the rows' (jmin, jmax),
+    (-1, -2) for a row that does not vote; the item's slices written to
+    the outputs, poisoned first so that a slot no item writes shows."""
+    tc = min(S, MAX_TILE)
+    ntiles = S // tc
     off1, off2 = pvt.plane_offsets(S)
-    counts = np.zeros((N, S, 4), np.int32)
-    ins = np.zeros((2, N, S + 1, 4), np.int32)
-    cov = np.zeros(N * (S + 1) + 1, np.int32)
-    n_reads = np.zeros(N, np.int32)
-    for w in range(N):
-        rows = np.arange(win_ptr[w], win_ptr[w + 1])
-        rows = rows[ok[rows] & (stats[rows, 1] >= 0)]
-        n_reads[w] = len(rows)
-        for off, width, out in ((0, S, counts[w]), (off1, S + 1, ins[0, w]),
-                                (off2, S + 1, ins[1, w])):
-            words = planes[rows, off : off + 4 * (-(-width // 4))]
-            for v in range(4):
-                out[:, v] = (words == v).sum(0)[:width]
-        c = np.arange(S + 1)
-        cov[w * (S + 1) : (w + 1) * (S + 1)] = (
-            (stats[rows, 0][:, None] == c).sum(0)
-            - (stats[rows, 1][:, None] + 1 == c).sum(0))
-    return (counts.reshape(N * S, 4), cov, ins[0].reshape(-1, 4),
-            ins[1].reshape(-1, 4), n_reads)
+    counts = np.full((N * S, 4), -7, np.int32)
+    ins1 = np.full((N * (S + 1), 4), -7, np.int32)
+    ins2 = np.full((N * (S + 1), 4), -7, np.int32)
+    cov = np.full(N * (S + 1) + 1, -7, np.int32)
+    n_reads = np.full(N, -7, np.int32)
+    for cta in range(grid):
+        for item in range(cta, N * ntiles, grid):
+            w, t = divmod(item, ntiles)
+            cb, last = t * tc, int(t == ntiles - 1)
+            lo, hi = int(win_ptr[w]), int(win_ptr[w + 1])
+            tab = np.zeros((3 * tc + 2, 4), np.int32)
+            cs = np.zeros(tc + 1, np.int32)
+            voting = 0
+            for c in range(max(1, -(-(hi - lo) // chunk))):
+                rows = np.arange(lo + c * chunk, min(lo + (c + 1) * chunk,
+                                                     hi))
+                stage = np.concatenate(
+                    [planes[rows, cb : cb + tc],
+                     planes[rows, off1 + cb : off1 + cb + tc + 16],
+                     planes[rows, off2 + cb : off2 + cb + tc + 16]], 1)
+                use = ok[rows] & (stats[rows, 1] >= 0)
+                meta = np.where(use[:, None], stats[rows], [-1, -2])
+                voting += int(use.sum())
+                for j, d in ((meta[:, 0] - cb, 1), (meta[:, 1] + 1 - cb, -1)):
+                    np.add.at(cs, j[(j >= 0) & (j < tc + last)], d)
+                # (stage offset, table row, columns) of each plane; the
+                # word past an insertion plane's TC columns holds column S
+                for soff, at, width in ((0, 0, tc), (tc, tc, tc + last),
+                                        (2 * tc + 16, 2 * tc + 1,
+                                         tc + last)):
+                    words = np.ascontiguousarray(
+                        stage[:, soff : soff + 4 * -(-width // 4)]
+                    ).view("<u4")
+                    packed = _tally(words, use)
+                    for k in range(4):
+                        cols = tab[at + k : at + width : 4]
+                        cols += ((packed >> np.uint32(8 * k))
+                                 & np.uint32(0xFF)).T[: len(cols)].astype(
+                                     np.int32)
+            counts[w * S + cb : w * S + cb + tc] = tab[:tc]
+            at = w * (S + 1) + cb
+            ins1[at : at + tc + last] = tab[tc : 2 * tc + last]
+            ins2[at : at + tc + last] = tab[2 * tc + 1 : 3 * tc + 1 + last]
+            cov[at : at + tc + last] = cs[: tc + last]
+            if t == 0:
+                n_reads[w] = voting
+    cov[N * (S + 1)] = 0
+    return counts, cov, ins1, ins2, n_reads
 
 
+def _reference(planes, stats, ok, win, N, S):
+    return cd._kernel_vote_tables(
+        jnp.asarray(planes), jnp.asarray(stats),
+        jnp.asarray(win.astype(np.int32)), jnp.asarray(ok), N, S)
+
+
+@pytest.mark.parametrize("S", (128, 512, 1024))
 @pytest.mark.parametrize("case", CASES)
-def test_kernel_mirror_matches_plain(case):
-    """The kernel's design (CSR row ranges, four-column words, the
-    coverage on the first insertion plane) gives the plain tables."""
-    S = 128
+def test_kernel_mirror_matches_plain(case, S):
+    """The kernel's design (persistent items of (window, column tile),
+    chunks of rows, packed 8-bit counts widened after each chunk, the
+    coverage by tile) gives the plain tables and the JAX package's; S =
+    1024 is column-tiled (two tiles a window)."""
     planes, stats, ok, win, N = _round(S, case, seed=7 + len(case))
     want = pvt.vote_tables_plain(*_torch(planes, stats, ok, win), N, S)
     got = _kernel_mirror(planes, stats, ok, pvt.window_rows(win, N), N, S)
     _assert_tables([t.numpy() for t in want], got)
+    _assert_tables(_reference(planes, stats, ok, win, N, S), got)
+
+
+@pytest.mark.parametrize("grid", (3, 7))
+@pytest.mark.parametrize("S", (128, 512, 1024))
+def test_kernel_mirror_deep_and_empty_windows(S, grid):
+    """Windows deeper than the 8-bit counters (255 rows) and than the
+    ring, among empty ones and ones cut at the chunks' edges (1, 16, 17,
+    32, 33 rows), N no multiple of the grid: the mirror equals the plain
+    tables and the JAX package's."""
+    sizes = [0, 300, 0, 1, 16, 17, 0, 32, 33, 0, 0, 257, 0]
+    assert len(sizes) % grid
+    planes, stats, ok, _win, _N = _round(S, "not_ok", seed=S + grid,
+                                         B=sum(sizes))
+    N = len(sizes)
+    win = np.repeat(np.arange(N), sizes)
+    want = pvt.vote_tables_plain(*_torch(planes, stats, ok, win), N, S)
+    got = _kernel_mirror(planes, stats, ok, pvt.window_rows(win, N), N, S,
+                         grid=grid)
+    _assert_tables([t.numpy() for t in want], got)
+    _assert_tables(_reference(planes, stats, ok, win, N, S), got)
+
+
+@pytest.mark.parametrize("chunk", (1, 32))
+def test_kernel_mirror_chunk_limits(chunk):
+    """A stage of one row and one of 32 (one a producer lane; the 8-bit
+    counters hold 32 rows' votes) give the same tables."""
+    S = 512
+    planes, stats, ok, win, N = _round(S, "one_window", seed=chunk, B=70)
+    want = pvt.vote_tables_plain(*_torch(planes, stats, ok, win), N, S)
+    got = _kernel_mirror(planes, stats, ok, pvt.window_rows(win, N), N, S,
+                         chunk=chunk)
+    _assert_tables([t.numpy() for t in want], got)
+
+
+def test_tally_counts_only_codes_0_to_3():
+    """Every byte value 0-255 at every byte of a word whose other bytes
+    are code 4: the packed count of code v is 1 exactly where the byte
+    is v < 4, and nothing for a row that does not vote."""
+    vals = np.arange(256, dtype=np.uint32)
+    for k in range(4):
+        rest = np.uint32(0x04040404 & ~(0xFF << (8 * k)))
+        words = ((vals << np.uint32(8 * k)) | rest)[:, None]
+        for use in (True, False):
+            got = np.stack([_tally(words[i : i + 1], np.array([use]))[:, 0]
+                            for i in range(256)])
+            want = np.zeros((256, 4), np.uint32)
+            if use:
+                want[np.arange(4), np.arange(4)] = 1 << (8 * k)
+            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", ("random", "empty_windows", "pad_read",
@@ -193,6 +315,56 @@ def test_wrapper_refuses_bad_row_offsets(bad):
     p, s, _w, o = _torch(planes, stats, ok, win)
     with pytest.raises(ValueError, match="CSR row offsets"):
         pvt.vote_tables(p, s, torch.from_numpy(ptr), o, N, 128)
+
+
+@pytest.mark.parametrize("name,value", (("kMaxTile", MAX_TILE),
+                                        ("kChunk", CHUNK)))
+def test_mirror_follows_kernel_constants(name, value):
+    """The mirror's tile and chunk are the kernel source's."""
+    with open(KERNEL_SRC) as f:
+        src = f.read()
+    got = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert got and int(got.group(1)) == value
+
+
+@pytest.mark.parametrize("S", (0, -512, 100, 520, 1040))
+def test_cuda_args_refuse_widths(S):
+    """The kernel takes S a multiple of 16 (the bulk copies' sizes and
+    offsets), and above one tile (512 columns) a multiple of it."""
+    B, N = 4, 2
+    planes = torch.zeros((B, 3 * max(S, 0) + 256), dtype=torch.uint8)
+    stats = torch.zeros((B, 2), dtype=torch.int32)
+    ok = torch.ones(B, dtype=torch.bool)
+    win_ptr = torch.tensor([0, 2, B], dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pvt._check_cuda_args(planes, stats, win_ptr, ok, N, S)
+
+
+@pytest.mark.parametrize("bad", ("none", "S_not_16", "row_stride",
+                                 "storage_offset"))
+def test_cuda_args_refuse_unaligned_planes(bad):
+    """The kernel's argument checks (run for CUDA tensors; here on CPU
+    tensors of the same shapes): the bulk copies need the planes' row
+    stride and storage 16-byte aligned."""
+    S, B, N = 128, 8, 3
+    W = 3 * S + 256
+    if bad == "S_not_16":
+        S = 100
+        W = 3 * S + 256
+    planes = torch.zeros((B, W), dtype=torch.uint8)
+    if bad == "row_stride":
+        planes = torch.zeros((B, W + 4), dtype=torch.uint8)[:, :W]
+    elif bad == "storage_offset":
+        planes = torch.zeros(B * W + 4, dtype=torch.uint8)[4:].view(B, W)
+    stats = torch.zeros((B, 2), dtype=torch.int32)
+    ok = torch.ones(B, dtype=torch.bool)
+    win_ptr = torch.from_numpy(pvt.window_rows(np.arange(B) * N // B, N))
+    if bad == "none":
+        pvt._check_cuda_args(planes, stats, win_ptr, ok, N, S)
+        return
+    match = "multiple of 16" if bad == "S_not_16" else "16-byte aligned"
+    with pytest.raises(ValueError, match=match):
+        pvt._check_cuda_args(planes, stats, win_ptr, ok, N, S)
 
 
 def test_dense_consensus_prof():
