@@ -227,31 +227,45 @@ def launches():
     return out
 
 
+LOG_ROOT = "chip_smoke.launch_log"
+
+
 @contextlib.contextmanager
 def launch_log():
-    """Every kernel launch of the block, with CUDA events around each:
-    yields a list that holds, once the block has ended, one record a
-    (kernel, S, W) bucket: launches, reads and device ms."""
+    """Every kernel launch of the block, from the port's trace (the block
+    runs under ``trace.recording()`` in a root span named
+    :data:`LOG_ROOT`): yields a list that holds, once the block has
+    ended, one record a (kernel, S, W) bucket: launches, reads and device
+    ms."""
     import torch
 
-    from haslr_tpu_torch.kernels import nw_rowscan as rs
+    from haslr_tpu_torch import trace
 
     out = []
-    rs.LAUNCH_LOG = []
-    try:
+    with trace.recording(), trace.span(LOG_ROOT) as root:
         yield out
-        torch.cuda.synchronize()
-        buckets = {}
-        for name, n, R, W, ev0, ev1 in rs.LAUNCH_LOG:
-            b = buckets.setdefault((name, R, W), {
-                "kernel": name, "S": R, "W": W, "launches": 0, "reads": 0,
-                "device_ms": 0.0})
-            b["launches"] += 1
-            b["reads"] += n
-            b["device_ms"] += ev0.elapsed_time(ev1)
-        out.extend(buckets[k] for k in sorted(buckets))
-    finally:
-        rs.LAUNCH_LOG = None
+    torch.cuda.synchronize()
+    buckets = {}
+    for x in trace.launches_of(root):
+        S = x.S or x.width  # V1's width, else the rows' width
+        b = buckets.setdefault((x.kernel, S, x.band), {
+            "kernel": x.kernel, "S": S, "W": x.band, "launches": 0,
+            "reads": 0, "device_ms": 0.0})
+        b["launches"] += 1
+        b["reads"] += x.rows
+        b["device_ms"] += trace.device_ms(x)
+    out.extend(buckets[k] for k in sorted(buckets))
+
+
+def stage_seconds():
+    """Seconds of each ``pipeline.<stage>`` span of the last
+    :func:`launch_log` block."""
+    from haslr_tpu_torch import trace
+
+    root = trace.roots(LOG_ROOT)[-1]
+    return {s.name.split(".", 1)[1]: (s.end_ns - s.start_ns) * 1e-9
+            for s in trace.spans_of(root)
+            if s.name.startswith("pipeline.") and s.name != "pipeline.run"}
 
 
 @contextlib.contextmanager
@@ -1210,7 +1224,7 @@ def _run_cli(dev, scale, threads, out, log_path, mesh=None):
     return {
         "launches_by_bucket": by_bucket,
         "scale_bp": scale, "threads": threads, "wall_s": wall,
-        "stages_s": dict(cli.STAGE_TIMES), "align_phases_s": dict(amap.PROF),
+        "stages_s": stage_seconds(), "align_phases_s": dict(amap.PROF),
         **assembly_stats(final_fasta(out), g_path), "launches": counts,
     }
 

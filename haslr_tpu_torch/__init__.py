@@ -20,6 +20,9 @@ point runs on the card unless the caller passes ``device="cpu"``.
 - ``aligner/``          long-read mapping with the device extension.
 - ``assemble/``         consensus-engine selection and ``run_assembler``.
 - ``cli/haslr``         the five-stage pipeline driver (``--device``).
+- ``trace``             spans, counters and kernel launches, recorded
+                        while a ``torch.profiler`` session records or
+                        inside ``trace.recording()``.
 
 Importing this package never imports torch or jax, and never builds a
 kernel: the CUDA sources are compiled with ``nvcc`` at first launch.

@@ -15,6 +15,7 @@ import sys
 
 import torch
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.assemble import backbone as bb
 from haslr_tpu_torch.config import AssembleConfig
 from haslr_tpu_torch.core import seq as cseq
@@ -61,7 +62,8 @@ def calc_consensus(
         twin.flag = 12
         edges.append((edge, twin))
 
-    windows = [_edge_window_seqs(edge, lrs) for edge, _ in edges]
+    with trace.span("consensus.windows"):
+        windows = [_edge_window_seqs(edge, lrs) for edge, _ in edges]
     if cfg.consensus_engine == "tpu":
         from haslr_tpu_torch.kernels.consensus import batched_consensus
 

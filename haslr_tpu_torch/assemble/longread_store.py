@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.config import AssembleConfig
 from haslr_tpu_torch.core import cigar as ccigar
 from haslr_tpu_torch.core import io as cio
@@ -149,8 +150,12 @@ def load_alignments(
     and contigs to ordinals, reference ``Longread.cpp:286-289``).  Lines of
     one read must be consecutive (minimap2 output order), as the reference
     assumes.
+
+    Counts ``asm.paf.records`` (lines read), ``asm.paf.cigars`` (CIGARs
+    parsed: lines past filters 1-4) and ``asm.paf.kept`` (alignments
+    kept) once a call (:func:`haslr_tpu_torch.trace.count`).
     """
-    n_total = 0
+    n_total = n_records = n_cigars = 0
     group: list[Alignment] = []
     last_q: str | None = None
 
@@ -165,7 +170,7 @@ def load_alignments(
             lrs.alignments[a.q_id].append(a)
         n_total += len(kept)
 
-    for rec in cio.read_paf(path):
+    for n_records, rec in enumerate(cio.read_paf(path), 1):
         if last_q is not None and rec.q_name != last_q and group:
             flush()
             group = []
@@ -181,6 +186,7 @@ def load_alignments(
         if contigs.mean_kmer[t_id] > uniq_freq * (3 + cfg.max_uniq_dev):
             continue
         ops, lens = ccigar.parse(rec.cigar)
+        n_cigars += 1
         a = Alignment(
             q_id=int(rec.q_name),
             q_start=rec.q_start,
@@ -199,6 +205,9 @@ def load_alignments(
         last_q = rec.q_name
         group.append(a)
     flush()
+    trace.count("asm.paf.records", n_records)
+    trace.count("asm.paf.cigars", n_cigars)
+    trace.count("asm.paf.kept", n_total)
     return n_total
 
 

@@ -8,25 +8,27 @@ port's copy of the host stages of :mod:`haslr_tpu.cli.haslr`.  The
 aligner's extension and the consensus run on ``--device`` (``cuda``, the
 default, or ``cpu``).  ``--devices N`` shards them, and the short-read
 k-mer count, over a ``dp`` mesh of N devices of that kind (0: every
-visible card), with the same outputs as one device.
+visible card), with the same outputs as one device.  ``--trace FILE``
+writes the run's spans (``pipeline.run``, a ``pipeline.<stage>`` a
+stage and the assembler's own), counters and kernel launches to FILE as
+JSON lines (:func:`haslr_tpu_torch.trace.write_jsonl`).
 
 Usage::
 
     python -m haslr_tpu_torch.cli.haslr -o OUT -g 4.6m -l LR.fa -x pacbio \\
-        -s SR.fq [-t THREADS] [--device cuda|cpu] [--devices N]
+        -s SR.fq [-t THREADS] [--device cuda|cpu] [--devices N] \\
+        [--trace FILE]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
-import time
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.config import PipelineConfig, parse_genome_size
-
-# wall-clock per stage of the last run_pipeline call
-STAGE_TIMES: dict[str, float] = {}
 
 
 def _stamp(msg: str):
@@ -185,35 +187,34 @@ def run_pipeline(cfg: PipelineConfig, device, mesh=None) -> str:
     os.makedirs(cfg.out, exist_ok=True)
     sys.stdout.write(f"number of threads: {cfg.threads}\n")
     sys.stdout.write(f"output directory: {cfg.out}\n")
-    STAGE_TIMES.clear()
-    t = time.time()
-    lr_file = prepare_lrs(cfg)
-    STAGE_TIMES["prepare_lrs"] = time.time() - t
-    if cfg.contig is None:
-        t = time.time()
-        assemble_srs(cfg, mesh)
-        STAGE_TIMES["assemble_srs"] = time.time() - t
-    t = time.time()
-    noov_file, good_file = remove_short_src(cfg)
-    STAGE_TIMES["remove_short_src"] = time.time() - t
-    t = time.time()
-    paf = align_lr_src(cfg, lr_file, good_file, mesh)
-    STAGE_TIMES["align_lr_src"] = time.time() - t
-    t = time.time()
-    out = assemble_lr(cfg, lr_file, noov_file, paf, mesh)
-    STAGE_TIMES["assemble_lr"] = time.time() - t
-    return out
+    with trace.span("pipeline.run"):
+        with trace.span("pipeline.prepare_lrs"):
+            lr_file = prepare_lrs(cfg)
+        if cfg.contig is None:
+            with trace.span("pipeline.assemble_srs"):
+                assemble_srs(cfg, mesh)
+        with trace.span("pipeline.remove_short_src"):
+            noov_file, good_file = remove_short_src(cfg)
+        with trace.span("pipeline.align_lr_src"):
+            paf = align_lr_src(cfg, lr_file, good_file, mesh)
+        with trace.span("pipeline.assemble_lr"):
+            return assemble_lr(cfg, lr_file, noov_file, paf, mesh)
 
 
 def parse_options(argv=None) -> tuple[PipelineConfig, str]:
     """The reference driver's flags, with ``--device`` in place of
     ``--platform``; returns (config, device name)."""
+    return _parse(argv)[:2]
+
+
+def _parse(argv):
+    """:func:`parse_options` and the ``--trace`` file (None without)."""
     p = argparse.ArgumentParser(
         prog="haslr",
         usage=(
             "haslr [-t THREADS] -o OUT_DIR -g GENOME_SIZE -l LONG [LONG ...]"
             " -x LONG_TYPE -s SHORT [SHORT ...] [--device cuda|cpu]"
-            " [--devices N]"
+            " [--devices N] [--trace FILE]"
         ),
     )
     p.add_argument("-o", "--out", required=True)
@@ -247,6 +248,9 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
              "aligner extension, consensus) on --device's kind; 0 = all "
              "visible cards",
     )
+    p.add_argument("--trace", metavar="FILE",
+                   help="write the run's spans, counters and kernel "
+                        "launches to FILE as JSON lines")
     a = p.parse_args(argv)
     if a.short is None and a.contig is None:
         p.error("either -s/--short or -c/--contig is required")
@@ -280,12 +284,15 @@ def parse_options(argv=None) -> tuple[PipelineConfig, str]:
         min_src=a.min_src,
         devices=a.devices,
     )
-    return cfg, a.device
+    return cfg, a.device, a.trace
 
 
 def main(argv=None):
-    cfg, device_name = parse_options(argv)
-    out = run_pipeline(cfg, device_name)
+    cfg, device_name, trace_path = _parse(argv)
+    with trace.recording() if trace_path else contextlib.nullcontext():
+        out = run_pipeline(cfg, device_name)
+    if trace_path:
+        trace.write_jsonl(trace_path, trace.roots("pipeline.run")[-1:])
     sys.stdout.write(f"final assembly: {out}\n")
     return 0
 

@@ -5,20 +5,23 @@ Same options as the reference binary (``Commandline.cpp:68-242``), the
 same defaults where a value is invalid, and the same resume from the
 ``index.*.npz`` snapshots in the output directory.  The reference's
 ``--platform auto|cpu`` becomes ``--device cuda|cpu`` (default ``cuda``,
-which raises without a card).
+which raises without a card).  ``--trace FILE`` writes the run's spans
+(``asm.run`` and its steps), counters and kernel launches to FILE as
+JSON lines (:func:`haslr_tpu_torch.trace.write_jsonl`).
 
     python -m haslr_tpu_torch.cli.haslr_assemble -c contigs.fa -l lr.fa \\
         -m map.paf -d outdir [--aln-block N] [--aln-sim F] [--uniq-dev F] \\
         [--edge-sup N] [-t N] [--long-fofn] [--mapping-fofn] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--trace FILE]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
-from haslr_tpu_torch import __version__
+from haslr_tpu_torch import __version__, trace
 from haslr_tpu_torch.config import AssembleConfig
 
 
@@ -47,6 +50,9 @@ def main(argv=None):
                    choices=["tpu", "poa"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device for the consensus")
+    p.add_argument("--trace", metavar="FILE",
+                   help="write the run's spans, counters and kernel "
+                        "launches to FILE as JSON lines")
     p.add_argument("--version", action="version", version=__version__)
     a = p.parse_args(argv)
     # defaults-on-invalid, mirroring Commandline.cpp:148-175
@@ -70,11 +76,14 @@ def main(argv=None):
         min_bridge_support=a.bridge_sup,
     )
     print(f"[NOTE] number of threads: {cfg.num_threads}\n", file=sys.stderr)
-    stats = run_assembler(
-        a.contig, a.long, a.mapping, a.dir, cfg=cfg,
-        log=sys.stderr, long_fofn=a.long_fofn, mapping_fofn=a.mapping_fofn,
-        device=a.device,
-    )
+    with trace.recording() if a.trace else contextlib.nullcontext():
+        stats = run_assembler(
+            a.contig, a.long, a.mapping, a.dir, cfg=cfg,
+            log=sys.stderr, long_fofn=a.long_fofn,
+            mapping_fofn=a.mapping_fofn, device=a.device,
+        )
+    if a.trace:
+        trace.write_jsonl(a.trace, trace.roots("asm.run")[-1:])
     print("*** BYE ***\n", file=sys.stderr)
     return 0 if stats else 1
 

@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.dist.mesh import Mesh, as_mesh
 from haslr_tpu_torch.kernels import nw
 from haslr_tpu_torch.kernels.kmer_stream import pack2
@@ -404,8 +405,54 @@ def _dispatch_group(window_codes, drafts0, win_list, S, W, match, mismatch,
                     gap, rounds, mesh):
     """Pack one bucket group, copy it to the mesh's devices (the reads
     in blocks, one a device, each with its :func:`window_rows`) and queue
-    its rounds; returns a pending handle for :func:`_collect_group`."""
-    t0 = time.perf_counter()
+    its rounds; returns a pending handle for :func:`_collect_group`.
+    Spans ``consensus.pack`` and ``consensus.dispatch``; counts the
+    group, its windows and its reads."""
+    with trace.span("consensus.pack"):
+        t0 = time.perf_counter()
+        flat, draft_off, d_lens0, read_off, r_lens, win_idx, \
+            n_skipped_long = _pack_group(window_codes, drafts0, win_list, S)
+        # the rows come in window order, so a block's windows are row
+        # ranges
+        N, B = len(win_list), len(r_lens)
+        blocks = [(lo, hi, dev, window_rows(win_idx[lo:hi], N))
+                  for (lo, hi), dev in zip(mesh.blocks(B), mesh.devices)
+                  if hi > lo]
+        _prof("pack", time.perf_counter() - t0)
+    _prof("n_dispatch", 1)
+    trace.count("consensus.n_groups", 1)
+    trace.count("consensus.n_windows", N)
+    trace.count("consensus.n_reads", B if r_lens[0] else 0)  # no pad read
+
+    def put(a, dtype, dev):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    with trace.span("consensus.dispatch"):
+        t0 = time.perf_counter()
+        home = mesh.devices[0]
+        flat_on = {home: put(flat, np.uint8, home)}
+        shards = []
+        for lo, hi, dev, win_ptr in blocks:
+            if dev not in flat_on:
+                flat_on[dev] = put(flat, np.uint8, dev)
+            shards.append((flat_on[dev], put(read_off[lo:hi], np.int64, dev),
+                           put(r_lens[lo:hi], np.int32, dev),
+                           put(win_idx[lo:hi], np.int64, dev),
+                           put(win_ptr, np.int32, dev)))
+        packed, tail = _rounds(
+            shards, flat_on[home], put(draft_off, np.int64, home),
+            put(d_lens0, np.int32, home), N, S, W, rounds, match, mismatch,
+            gap,
+        )
+        _prof(f"dispatch_S{S}_B{B}", time.perf_counter() - t0)
+    return packed, tail, win_list, S, B, n_skipped_long
+
+
+def _pack_group(window_codes, drafts0, win_list, S):
+    """One group's drafts and reads packed 2 bits a base into one flat
+    array: ``(flat, draft_off, d_lens0, read_off, r_lens, win_idx,
+    n_skipped_long)``, the reads in window order (an inert pad read of
+    length 0 where there are none)."""
     parts: list[np.ndarray] = []
     flat_len = 0
     N = len(win_list)
@@ -434,59 +481,35 @@ def _dispatch_group(window_codes, drafts0, win_list, S, W, match, mismatch,
     if not r_lens:  # one inert pad read (r_len 0) keeps shapes non-empty
         read_off, r_lens, win_idx = [0], [0], [N - 1]
     flat = pack2(np.concatenate(parts)) if flat_len else np.zeros(1, np.uint8)
-    # the rows come in window order, so a block's windows are row ranges
-    B = len(r_lens)
-    blocks = [(lo, hi, dev, window_rows(win_idx[lo:hi], N))
-              for (lo, hi), dev in zip(mesh.blocks(B), mesh.devices)
-              if hi > lo]
-    _prof("pack", time.perf_counter() - t0)
-    _prof("n_dispatch", 1)
-    t0 = time.perf_counter()
-
-    def put(a, dtype, dev):
-        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
-
-    home = mesh.devices[0]
-    flat_on = {home: put(flat, np.uint8, home)}
-    shards = []
-    for lo, hi, dev, win_ptr in blocks:
-        if dev not in flat_on:
-            flat_on[dev] = put(flat, np.uint8, dev)
-        shards.append((flat_on[dev], put(read_off[lo:hi], np.int64, dev),
-                       put(r_lens[lo:hi], np.int32, dev),
-                       put(win_idx[lo:hi], np.int64, dev),
-                       put(win_ptr, np.int32, dev)))
-    packed, tail = _rounds(
-        shards, flat_on[home], put(draft_off, np.int64, home),
-        put(d_lens0, np.int32, home), N, S, W, rounds, match, mismatch,
-        gap,
-    )
-    _prof(f"dispatch_S{S}_B{B}", time.perf_counter() - t0)
-    return packed, tail, win_list, S, B, n_skipped_long
+    return (flat, draft_off, d_lens0, read_off, r_lens, win_idx,
+            n_skipped_long)
 
 
 def _collect_group(pending, results, warn):
-    """Copy one dispatched group's drafts back and unpack its windows."""
+    """Copy one dispatched group's drafts back (span ``consensus.wait``)
+    and unpack its windows (``consensus.unpack``)."""
     packed, tail, win_list, S, B, n_skipped_long = pending
-    t0 = time.perf_counter()
-    packed = packed.cpu().numpy()
-    d_lens, overflow, dropped = tail.cpu().numpy()
-    _prof(f"device_S{S}_B{B}", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    n_over = int((overflow > 0).sum())
-    if n_over and warn is not None:
-        warn(
-            f"consensus: {n_over} window(s) hit the {S} bp bucket cap "
-            f"(max overflow {int(overflow.max())} bp); consider the host "
-            "POA path for these edges"
-        )
-    n_drop = int(dropped.sum()) + n_skipped_long
-    if n_drop and warn is not None:
-        warn(
-            f"consensus: {n_drop} band-incompatible supporting read(s) "
-            f"skipped across {len(win_list)} window(s) in the {S} bp "
-            "bucket (length differs from the draft by >= W/2)"
-        )
-    for li, wi in enumerate(win_list):
-        results[wi] = _unpack_host(packed[li], int(d_lens[li]))
-    _prof("unpack", time.perf_counter() - t0)
+    with trace.span("consensus.wait"):
+        t0 = time.perf_counter()
+        packed = packed.cpu().numpy()
+        d_lens, overflow, dropped = tail.cpu().numpy()
+        _prof(f"device_S{S}_B{B}", time.perf_counter() - t0)
+    with trace.span("consensus.unpack"):
+        t0 = time.perf_counter()
+        n_over = int((overflow > 0).sum())
+        if n_over and warn is not None:
+            warn(
+                f"consensus: {n_over} window(s) hit the {S} bp bucket cap "
+                f"(max overflow {int(overflow.max())} bp); consider the "
+                "host POA path for these edges"
+            )
+        n_drop = int(dropped.sum()) + n_skipped_long
+        if n_drop and warn is not None:
+            warn(
+                f"consensus: {n_drop} band-incompatible supporting read(s) "
+                f"skipped across {len(win_list)} window(s) in the {S} bp "
+                "bucket (length differs from the draft by >= W/2)"
+            )
+        for li, wi in enumerate(win_list):
+            results[wi] = _unpack_host(packed[li], int(d_lens[li]))
+        _prof("unpack", time.perf_counter() - t0)

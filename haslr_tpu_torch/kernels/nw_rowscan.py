@@ -36,6 +36,8 @@ import functools
 import numpy as np
 import torch
 
+from haslr_tpu_torch import trace
+
 NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2
 
@@ -47,12 +49,6 @@ DIRS_BUDGET = {"cuda": 4 << 30, "cpu": 256 << 20}
 # kernel launches by wrapper (plain-version calls do not count); reset
 # and read by callers that must show the main path went through a kernel
 LAUNCHES = {"rowscan_votes": 0, "rowscan_cigar": 0, "rowscan_mapping": 0}
-
-# like LAUNCHES, for callers that report on a run and for nothing on the
-# main path: when a list, every kernel launch appends (name, B, R, W,
-# start event, end event), CUDA events recorded around the launch on its
-# stream; None (the default) records nothing
-LAUNCH_LOG: list | None = None
 
 # the kernels' routes (row-scan and wavefront alike): (C lanes a thread,
 # WPR warps a read) by the lanes computed, 32 * C * WPR.  One warp a read
@@ -370,9 +366,10 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
                    per_read, outs, extra):
     """Launch kernel ``hx_{name}`` over the batch in chunks whose
     direction scratch (``per_read`` bytes a read) fits
-    :data:`DIRS_BUDGET`, counting each launch
-    in ``launches[name]``; ``base`` is the band's lane-0 column table on
-    the device, ``outs`` (tensor, bytes per read) output pairs, ``extra``
+    :data:`DIRS_BUDGET`, counting each launch in ``launches[name]`` and
+    recording it on the trace (:func:`haslr_tpu_torch.trace.launch`);
+    ``base`` is the band's lane-0 column table on the device, ``outs``
+    (tensor, bytes per read) output pairs, ``extra``
     trailing int arguments.  The launches run with the tensors' card
     current: the library's runtime launches into the current context."""
     from haslr_tpu_torch.kernels import _build
@@ -387,24 +384,19 @@ def launch_chunked(name, launches, reads, r_lens, drafts, d_lens, W, base,
     with torch.cuda.device(reads.device):
         for lo in range(0, B, chunk):
             n = min(chunk, B - lo)
-            if LAUNCH_LOG is not None:
-                t0 = torch.cuda.Event(enable_timing=True)
-                t0.record(stream)
-            err = fn(
-                reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
-                drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
-                base.data_ptr(), dirs.data_ptr(),
-                *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
-                n, R, D, W, *extra, stream.cuda_stream,
-            )
+            with trace.launch(name, n, R, W, r_lens[lo:lo + n],
+                              stream=stream):
+                err = fn(
+                    reads.data_ptr() + lo * R, r_lens.data_ptr() + 4 * lo,
+                    drafts.data_ptr() + lo * D, d_lens.data_ptr() + 4 * lo,
+                    base.data_ptr(), dirs.data_ptr(),
+                    *(t.data_ptr() + lo * nbytes for t, nbytes in outs),
+                    n, R, D, W, *extra, stream.cuda_stream,
+                )
             if err != 0:
                 raise RuntimeError(f"{name} kernel launch failed: CUDA "
                                    f"error {err}")
             launches[name] += 1
-            if LAUNCH_LOG is not None:
-                t1 = torch.cuda.Event(enable_timing=True)
-                t1.record(stream)
-                LAUNCH_LOG.append((name, n, R, W, t0, t1))
 
 
 def packed_bytes(R: int, lanes: int) -> int:

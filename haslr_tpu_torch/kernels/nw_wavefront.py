@@ -47,6 +47,7 @@ import functools
 import numpy as np
 import torch
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.kernels.nw_rowscan import (
     DIAG,
     LEFT,
@@ -429,14 +430,16 @@ def wavefront_dirs(reads, r_lens, drafts, d_lens, W, match, mismatch, gap):
                        device=reads.device)
     reads, r_lens, drafts = _word_rows(reads, r_lens, drafts)
     fn = _build.lib()["hx_wavefront_dirs"]
-    with torch.cuda.device(reads.device):  # the tensors' card current
+    stream = torch.cuda.current_stream(reads.device)
+    # the tensors' card current
+    with torch.cuda.device(reads.device), trace.launch(
+            "wavefront_dirs", B, reads.shape[1], W, r_lens, stream=stream):
         err = fn(
             reads.data_ptr(), r_lens.data_ptr(), drafts.data_ptr(),
             d_lens.data_ptr(),
             _base_tensor(R, D, W, reads.device).data_ptr(), dirs.data_ptr(),
             B, reads.shape[1], drafts.shape[1], W, match, mismatch, gap, R,
-            D, C, wpr, rpb,
-            torch.cuda.current_stream(reads.device).cuda_stream,
+            D, C, wpr, rpb, stream.cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"wavefront_dirs kernel launch failed: CUDA "

@@ -30,7 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
-from haslr_tpu_torch.kernels import nw_rowscan
+from haslr_tpu_torch import trace
 
 # kernel launches (plain-version calls do not count); reset and read by
 # callers that must show the main path went through the kernel
@@ -169,24 +169,16 @@ def vote_tables(planes, stats, win_ptr, ok, N, S):
     off1, off2 = plane_offsets(S)
     fn = _build.lib()["hx_vote_tables"]
     stream = torch.cuda.current_stream(dev)
-    log = nw_rowscan.LAUNCH_LOG
-    with torch.cuda.device(dev):
-        if log is not None:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t0.record(stream)
+    with torch.cuda.device(dev), trace.launch(
+            "vote_tables", planes.shape[0], windows=N, S=S, stream=stream):
         err = fn(planes.data_ptr(), ok.data_ptr(), stats.data_ptr(),
                  win_ptr.data_ptr(), counts.data_ptr(), cov.data_ptr(),
                  ins1.data_ptr(), ins2.data_ptr(), n_reads.data_ptr(), N, S,
                  planes.stride(0), off1, off2, stream.cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"vote_tables kernel launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["vote_tables"] += 1
-        if log is not None:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record(stream)
-            # W 0: the reduction has no band
-            log.append(("vote_tables", planes.shape[0], S, 0, t0, t1))
+    if err != 0:
+        raise RuntimeError(f"vote_tables kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["vote_tables"] += 1
     return counts, cov, ins1, ins2, n_reads
 
 

@@ -24,7 +24,7 @@ WHOLE = [
     "aligner/minimizer.py", "aligner/index.py", "aligner/chain.py",
     "assemble/backbone.py", "assemble/cleaning.py", "assemble/compact.py",
     "assemble/contig_store.py", "assemble/coords.py",
-    "assemble/index_io.py", "assemble/longread_store.py",
+    "assemble/index_io.py",
     "assemble/stitch.py", "assemble/repeat.py", "assemble/poa.py",
     "testutil/__init__.py", "testutil/simulate.py",
 ]
@@ -76,13 +76,21 @@ PARTIAL = {
         ["NEG_H", "nw_cigar", "mapping_to_cigar", "_decode_runs_py",
          "chain_to_segments", "assemble_parts", "chain_to_cigar"],
     ),
+    "assemble/longread_store.py": (
+        "load_alignments counts the PAF's records, parsed CIGARs and kept "
+        "alignments on the port's trace",
+        ["Alignment", "LongreadStore", "_process_group",
+         "fix_overlapping_alignments", "dump_alignments", "dump_reads",
+         "fix_alignments"],
+    ),
     "assemble/pipeline.py": (
-        "run_assembler takes a torch device or a torch mesh",
+        "run_assembler takes a torch device or a torch mesh, and runs "
+        "each StageTimer stage in a span of the port's trace",
         ["StageTimer"],
     ),
     "assemble/consensus.py": (
         "calc_consensus calls the port's batched_consensus on a torch "
-        "device or mesh",
+        "device or mesh, its window extraction in a span of the trace",
         ["_edge_window_seqs", "_host_poa_windows"],
     ),
     "kernels/kmer.py": (
@@ -103,7 +111,7 @@ PARTIAL = {
     ),
     "cli/haslr.py": (
         "--device beside --devices; the mesh is built once, of --device's "
-        "kind",
+        "kind; the stages run in spans of the port's trace (--trace)",
         ["_stamp", "_done", "prepare_lrs", "remove_short_src"],
     ),
 }
@@ -186,7 +194,7 @@ def test_every_port_module_is_accounted_for():
         "dist/__init__.py", "dist/mesh.py", "dist/consensus_step.py",
         "cli/haslr_assemble.py",
         "kernels/nw_rowscan.py", "kernels/nw_wavefront.py",
-        "kernels/vote_tables.py",
+        "kernels/vote_tables.py", "trace.py",
     }
     found = set()
     for d, _dirs, files in os.walk(PORT):

@@ -56,7 +56,8 @@ def test_port_file_list_is_whole():
                 "haslr_tpu_torch/kernels/kmer.py",
                 "haslr_tpu_torch/kernels/kmer_stream.py",
                 "haslr_tpu_torch/kernels/pileup.py",
-                "haslr_tpu_torch/cli/haslr_assemble.py"):
+                "haslr_tpu_torch/cli/haslr_assemble.py",
+                "haslr_tpu_torch/trace.py"):
         assert rel in PORT_FILES
 
 
