@@ -131,6 +131,89 @@ def _process_group(
     return out
 
 
+def _passing_rows(cols, contigs, uniq_freq, cfg):
+    """The rows of the native scan's columns that pass filters 1-4, each
+    test as :func:`_python_records` makes it; None where that loop would
+    raise on a record it reaches (a zero ``n_block`` past filter 1, a
+    target id past the contigs), so that it runs and raises as it does."""
+    n_match, n_block, mapq, t_id = cols[:, 9], cols[:, 10], cols[:, 11], \
+        cols[:, 5]
+    ok = ~(n_block < cfg.min_aln_block)
+    if (n_block[ok] == 0).any():
+        return None
+    ok[ok] = ~(n_match[ok] / n_block[ok] < cfg.min_aln_sim)
+    ok &= ~(mapq < cfg.min_aln_mapq)
+    mean_kmer = np.asarray(contigs.mean_kmer, dtype=np.float64)
+    if (t_id[ok] >= len(mean_kmer)).any():
+        return None
+    ok[ok] = ~(mean_kmer[t_id[ok]] > uniq_freq * (3 + cfg.max_uniq_dev))
+    return np.flatnonzero(ok)
+
+
+def _native_records(path, contigs, uniq_freq, cfg):
+    """The PAF's records through the native scan
+    (:func:`haslr_tpu_torch.native.paf_read_native`), as
+    :func:`_python_records` yields them, the query id in place of its
+    name (ids are plain decimals there, so they compare as the names do);
+    None where the scan does not take the file.  The alignments' ops/lens
+    are views of one decoded blob."""
+    from haslr_tpu_torch import native
+
+    res = native.paf_read_native(
+        path, lambda cols: _passing_rows(cols, contigs, uniq_freq, cfg)
+    )
+    if res is None:
+        return None
+    cols, rows, ops, lens, off = res
+    fields = cols[:, :12].tolist()
+    slot = np.full(len(cols), -1, np.int64)
+    slot[rows] = np.arange(len(rows))
+    out = []
+    for i, s in enumerate(slot.tolist()):
+        f = fields[i]
+        if s < 0:
+            out.append((f[0], None))
+            continue
+        o0, o1 = int(off[s]), int(off[s + 1])
+        out.append((f[0], Alignment(
+            q_id=f[0], q_start=f[2], q_end=f[3], t_id=f[5],
+            t_start=f[7], t_end=f[8], n_match=f[9], n_block=f[10],
+            is_rev=f[4], mapq=f[11], t_len=f[6],
+            ops=ops[o0:o1], lens=lens[o0:o1],
+        )))
+    return out
+
+
+def _python_records(path, contigs, uniq_freq, cfg):
+    """The PAF's records, each as (query name, its alignment, or None
+    where it fails filters 1-4), read and parsed in Python."""
+    for rec in cio.read_paf(path):
+        # filters 1-3, then 4: drop alignments to high-copy contigs
+        if (rec.n_block < cfg.min_aln_block
+                or rec.n_match / rec.n_block < cfg.min_aln_sim
+                or rec.mapq < cfg.min_aln_mapq
+                or contigs.mean_kmer[int(rec.t_name)]
+                > uniq_freq * (3 + cfg.max_uniq_dev)):
+            yield rec.q_name, None
+            continue
+        ops, lens = ccigar.parse(rec.cigar)
+        yield rec.q_name, Alignment(
+            q_id=int(rec.q_name),
+            q_start=rec.q_start,
+            q_end=rec.q_end,
+            t_id=int(rec.t_name),
+            t_start=rec.t_start,
+            t_end=rec.t_end,
+            n_match=rec.n_match,
+            n_block=rec.n_block,
+            is_rev=1 if rec.strand == "-" else 0,
+            mapq=rec.mapq,
+            t_len=rec.t_len,
+            ops=ops,
+            lens=lens,
+        )
+
+
 def load_alignments(
     path: str,
     contigs,
@@ -151,13 +234,23 @@ def load_alignments(
     one read must be consecutive (minimap2 output order), as the reference
     assumes.
 
+    The file is read and the CIGARs of the records past filters 1-4 are
+    decoded in one native pass (``native/paf_read.cpp``); without the
+    native library, or on a file it does not take, in Python, which gives
+    the same alignments (or raises).
+
     Counts ``asm.paf.records`` (lines read), ``asm.paf.cigars`` (CIGARs
-    parsed: lines past filters 1-4) and ``asm.paf.kept`` (alignments
-    kept) once a call (:func:`haslr_tpu_torch.trace.count`).
+    parsed: lines past filters 1-4), ``asm.paf.kept`` (alignments kept)
+    and ``asm.paf.native`` (records the native scan read, 0 on the Python
+    path) once a call (:func:`haslr_tpu_torch.trace.count`).
     """
     n_total = n_records = n_cigars = 0
     group: list[Alignment] = []
-    last_q: str | None = None
+    last_q = None
+    records = _native_records(path, contigs, uniq_freq, cfg)
+    n_native = 0 if records is None else len(records)
+    if records is None:
+        records = _python_records(path, contigs, uniq_freq, cfg)
 
     def flush():
         nonlocal n_total
@@ -167,47 +260,26 @@ def load_alignments(
         group.sort(key=lambda a: (a.q_end, a.q_start))
         kept = _process_group(group, contigs, uniq_freq, cfg)
         for a in kept:
+            if n_native:
+                # own its CIGAR, not a view that keeps the blob alive
+                a.ops, a.lens = a.ops.copy(), a.lens.copy()
             lrs.alignments[a.q_id].append(a)
         n_total += len(kept)
 
-    for n_records, rec in enumerate(cio.read_paf(path), 1):
-        if last_q is not None and rec.q_name != last_q and group:
+    for n_records, (q, a) in enumerate(records, 1):
+        if last_q is not None and q != last_q and group:
             flush()
             group = []
-        # filters 1-3
-        if rec.n_block < cfg.min_aln_block:
+        if a is None:
             continue
-        if rec.n_match / rec.n_block < cfg.min_aln_sim:
-            continue
-        if rec.mapq < cfg.min_aln_mapq:
-            continue
-        # filter 4: drop alignments to high-copy contigs
-        t_id = int(rec.t_name)
-        if contigs.mean_kmer[t_id] > uniq_freq * (3 + cfg.max_uniq_dev):
-            continue
-        ops, lens = ccigar.parse(rec.cigar)
         n_cigars += 1
-        a = Alignment(
-            q_id=int(rec.q_name),
-            q_start=rec.q_start,
-            q_end=rec.q_end,
-            t_id=t_id,
-            t_start=rec.t_start,
-            t_end=rec.t_end,
-            n_match=rec.n_match,
-            n_block=rec.n_block,
-            is_rev=1 if rec.strand == "-" else 0,
-            mapq=rec.mapq,
-            t_len=rec.t_len,
-            ops=ops,
-            lens=lens,
-        )
-        last_q = rec.q_name
+        last_q = q
         group.append(a)
     flush()
     trace.count("asm.paf.records", n_records)
     trace.count("asm.paf.cigars", n_cigars)
     trace.count("asm.paf.kept", n_total)
+    trace.count("asm.paf.native", n_native)
     return n_total
 
 

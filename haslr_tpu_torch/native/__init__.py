@@ -1,12 +1,14 @@
 """Native (C++) runtime components with lazy build + ctypes bindings.
 
 The port's own copy of :mod:`haslr_tpu.native`: the same seven sources
-and the same bindings.  The library is compiled on demand from the
+and the same bindings, and one source of the port's own,
+``paf_read.cpp`` (the assembler's PAF ingest, :func:`paf_read_native`).
+The library is compiled on demand from the
 sources in this directory (g++ -O3, linked against zlib) into the
 package's ``_build/`` directory, under a name that carries a hash of the
 sources and the flags, so an edited source is rebuilt and a stale
 library is never loaded.  It exports the same ``hx_*`` names as the
-reference's library; ``ctypes.CDLL`` binds them per handle, so one
+reference's library, and the ``hx_paf_*`` reader besides; ``ctypes.CDLL`` binds them per handle, so one
 process can hold both.  Every native entry point has a pure-Python
 fallback, so the package works without a compiler; the native path
 removes per-record Python overhead from the I/O hot loops (the role
@@ -32,6 +34,10 @@ _SOURCES = [
     os.path.join(_DIR, "kmer.cpp"),
     os.path.join(_DIR, "paf.cpp"),
 ]
+# the port's own sources, built into the same library after the held ones
+_OWN_SOURCES = [
+    os.path.join(_DIR, "paf_read.cpp"),
+]
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lib = None
 _tried = False
@@ -39,7 +45,7 @@ _tried = False
 
 def _target() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _OWN_SOURCES:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR,
@@ -51,7 +57,7 @@ def _build(so: str) -> bool:
     try:
         os.makedirs(BUILD_DIR, exist_ok=True)
         res = subprocess.run(
-            ["g++", *_FLAGS, *_SOURCES, "-lz", "-o", tmp],
+            ["g++", *_FLAGS, *_SOURCES, *_OWN_SOURCES, "-lz", "-o", tmp],
             capture_output=True, timeout=240,
         )
         if res.returncode == 0 and os.path.isfile(tmp):
@@ -220,6 +226,21 @@ def get_lib():
     lib.hx_poa_out_offsets.argtypes = [ctypes.c_void_p]
     lib.hx_poa_free.restype = None
     lib.hx_poa_free.argtypes = [ctypes.c_void_p]
+    # PAF ingest
+    lib.hx_paf_scan.restype = ctypes.c_void_p
+    lib.hx_paf_scan.argtypes = [ctypes.c_char_p]
+    lib.hx_paf_n.restype = ctypes.c_uint64
+    lib.hx_paf_n.argtypes = [ctypes.c_void_p]
+    lib.hx_paf_cols.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.hx_paf_cols.argtypes = [ctypes.c_void_p]
+    lib.hx_paf_cigar_decode.restype = ctypes.c_int64
+    lib.hx_paf_cigar_decode.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.hx_paf_free.restype = None
+    lib.hx_paf_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     return _lib
 
@@ -671,3 +692,62 @@ def read_fastx_encoded(path: str):
         return codes, offsets.astype(np.int64), names, comments
     finally:
         lib.hx_free(h)
+
+
+PAF_COLS = 14
+
+
+def paf_read_native(path: str, select):
+    """Read a PAF (plain or gzip'd) in one native pass and decode the
+    CIGARs of the records that ``select`` picks (``paf_read.cpp``).
+
+    ``select(cols)`` gets the (n, 14) int64 columns, one row a record (q
+    id, q len, q start, q end, strand 1 = '-', t id, t len, t start, t end,
+    n_match, n_block, mapq, the CIGAR's offset and length in the file),
+    and returns the rows whose CIGARs to decode, in the order wanted, or
+    None to give up.  Returns ``(cols, rows, ops, lens, offsets)``: the
+    ops (uint8, M=0 I=1 D=2) and lengths (int64) of ``rows[i]`` are
+    ``ops[offsets[i]:offsets[i+1]]``, as ``core.cigar.parse`` gives them.
+    Returns None when the library is unavailable, the file cannot be taken
+    (names that are not integer ids, a malformed line: see the source), or
+    ``select`` gives up; the caller then takes the Python reader.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    h = lib.hx_paf_scan(path.encode())
+    if not h:
+        return None
+    try:
+        n = lib.hx_paf_n(h)
+        cols = (
+            np.ctypeslib.as_array(lib.hx_paf_cols(h),
+                                  shape=(n, PAF_COLS)).copy()
+            if n else np.zeros((0, PAF_COLS), np.int64)
+        )
+        rows = select(cols)
+        if rows is None:
+            return None
+        rows = np.ascontiguousarray(rows, dtype=np.int64)
+        if len(rows) and (rows.min() < 0 or rows.max() >= n):
+            raise IndexError("paf_read_native: a selected row is not a "
+                             "record of the file")
+        # an op takes two bytes of text at least; pages past the ops
+        # decoded are never touched
+        capacity = int((cols[rows, 13] // 2).sum())
+        ops = np.empty(capacity, np.uint8)
+        lens = np.empty(capacity, np.int64)
+        offsets = np.zeros(len(rows) + 1, np.uint64)
+        total = lib.hx_paf_cigar_decode(
+            h, rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(rows), capacity,
+            ops.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        )
+        if total < 0:
+            return None
+        ops, lens = ops[:total], lens[:total]
+        return cols, rows, ops, lens, offsets.astype(np.int64)
+    finally:
+        lib.hx_paf_free(h)
