@@ -77,9 +77,19 @@ def metric_reader(name: str):
 
 
 def cell_metrics(sp: dict, name: str, rate: str):
-    """The cell's end-to-end metrics and its per-layer metrics."""
+    """The cell's end-to-end metrics and its per-layer metrics.
+
+    An end-to-end metric with a ``workloads`` list belongs to the cells
+    it names.  One without a list belongs to every cell whose run
+    reports it: the stage's ``rate`` and ``setup_s``, which every run
+    reports.  So a cell enters with new files and new entries alone,
+    and a cell of another stage is never held to a rate it does not
+    report.  A per-layer metric with a list belongs to the cells it
+    names; one without, to every cell that has the metric it moves."""
+    reported = {rate, "setup_s"}
     e2e = [m for m in sp["end_to_end"]
-           if name in m.get("workloads", [name])]
+           if (name in m["workloads"] if "workloads" in m
+               else m["name"] in reported)]
     e2e_names = {m["name"] for m in e2e}
     per = []
     for m in sp["per_layer"]:
