@@ -48,22 +48,34 @@ def calc_consensus(
     work queue.  Returns the number of edges processed.  The device
     engine runs on ``device`` (the card unless the caller says ``"cpu"``)
     or, given a ``dp`` :class:`~haslr_tpu_torch.dist.mesh.Mesh`, over its
-    devices, with the same output."""
+    devices, with the same output.  Spans ``consensus.edges`` (the edge
+    loop and the twins' reverse complements), ``consensus.windows`` (the
+    extraction: counts ``consensus.extract.bases``, the whole lengths of
+    the reads it decodes, and ``consensus.extract.kept``, the lengths of
+    the subsequences it keeps) and ``consensus.log``."""
     cfg = cfg or AssembleConfig()
     if cfg.consensus_engine == "tpu":
         from haslr_tpu_torch.dist.mesh import as_mesh
 
         mesh = as_mesh(device, mesh)
     edges = []
-    for _n1, _r1, _n2, _r2, edge, twin in bb.unique_edges(graph):
-        if edge.flag == 12:
-            continue
-        edge.flag = 12
-        twin.flag = 12
-        edges.append((edge, twin))
+    with trace.span("consensus.edges"):
+        for _n1, _r1, _n2, _r2, edge, twin in bb.unique_edges(graph):
+            if edge.flag == 12:
+                continue
+            edge.flag = 12
+            twin.flag = 12
+            edges.append((edge, twin))
 
     with trace.span("consensus.windows"):
         windows = [_edge_window_seqs(edge, lrs) for edge, _ in edges]
+        if trace.on():
+            # each (window, read) pair decodes the whole read
+            trace.count("consensus.extract.bases", sum(
+                int(lrs.length(s.lr_id)) for edge, _ in edges
+                for s in edge.cns_supp))
+            trace.count("consensus.extract.kept",
+                        sum(len(sub) for subs in windows for sub in subs))
     if cfg.consensus_engine == "tpu":
         from haslr_tpu_torch.kernels.consensus import batched_consensus
 
@@ -78,11 +90,12 @@ def calc_consensus(
         results = _host_poa_windows(
             windows, cfg.poa_match, cfg.poa_mismatch, cfg.poa_gap
         )
-    for (edge, twin), cns in zip(edges, results):
-        edge.cns_seq = cns
-        twin.cns_seq = cseq.revcomp(cns)
+    with trace.span("consensus.edges"):
+        for (edge, twin), cns in zip(edges, results):
+            edge.cns_seq = cns
+            twin.cns_seq = cseq.revcomp(cns)
     if log_path is not None:
-        with open(log_path, "w") as fp:
+        with trace.span("consensus.log"), open(log_path, "w") as fp:
             for (edge, _twin), subs in zip(edges, windows):
                 fp.write(
                     f"[shared_region] head_end:{edge.head_end}\t"

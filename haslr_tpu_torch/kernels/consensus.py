@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from haslr_tpu_torch import trace
 from haslr_tpu_torch.core import seq as cseq
 from haslr_tpu_torch.dist.mesh import Mesh, as_mesh
 from haslr_tpu_torch.kernels import nw
@@ -276,17 +277,20 @@ def batched_consensus(
     cap/drop/split notices.  ``engine="chunked"`` runs round by round on
     ``device``, or on the mesh's first device when only a mesh is given:
     like the reference's, it does not shard; ``device_pileup=False``
-    votes on the host.  Both engines give the same output."""
+    votes on the host.  Both engines give the same output.  Spans
+    ``consensus.encode`` (the windows' strings to codes) and
+    ``consensus.decode`` (the drafts back to strings)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown consensus engine {engine!r} (one of "
                          f"{ENGINES})")
-    window_codes = [
-        [cseq.encode(s) for s in seqs if len(s) > 0] for seqs in windows
-    ]
+    with trace.span("consensus.encode"):
+        window_codes = [
+            [cseq.encode(s) for s in seqs if len(s) > 0] for seqs in windows
+        ]
     if engine == "dense":
         drafts = dense_consensus(window_codes, match, mismatch, gap, rounds,
                                  warn=warn, device=device, mesh=mesh)
-        return [cseq.decode(d) for d in drafts]
+        return _decode(drafts)
     dev = as_mesh(device, mesh).devices[0]
     drafts = []
     for codes in window_codes:
@@ -298,4 +302,10 @@ def batched_consensus(
     for _ in range(rounds):
         drafts = _one_round(window_codes, drafts, match, mismatch, gap,
                             device_pileup=device_pileup, device=dev)
-    return [cseq.decode(d) for d in drafts]
+    return _decode(drafts)
+
+
+def _decode(drafts) -> list[str]:
+    """The drafts' codes as strings (span ``consensus.decode``)."""
+    with trace.span("consensus.decode"):
+        return [cseq.decode(d) for d in drafts]

@@ -327,7 +327,8 @@ def dense_consensus(
     whose median draft exceeds the largest bucket are split, polished
     and stitched back (:func:`_expand_oversized`)."""
     mesh = as_mesh(device, mesh)
-    work_windows, plan = _expand_oversized(window_codes, warn)
+    with trace.span("consensus.plan"):
+        work_windows, plan = _expand_oversized(window_codes, warn)
     work_results = _dense_consensus_work(
         work_windows, match, mismatch, gap, rounds, warn, mesh,
     )
@@ -345,46 +346,50 @@ def dense_consensus(
 def _dense_consensus_work(window_codes, match, mismatch, gap, rounds, warn,
                           mesh):
     """The bucketed device pipeline over windows that each fit a
-    bucket."""
+    bucket.  Span ``consensus.plan`` (the drafts, buckets and groups);
+    counts the reads the engine skipped (``consensus.n_dropped``), the
+    sum of the numbers its warnings give."""
     results: list[np.ndarray | None] = [None] * len(window_codes)
-    groups: dict[int, list[int]] = {}
-    drafts0: list[np.ndarray] = []
-    for wi, codes in enumerate(window_codes):
-        nonempty = [c for c in codes if len(c) > 0]
-        if not nonempty:
-            drafts0.append(np.zeros(0, np.uint8))
-            results[wi] = np.zeros(0, np.uint8)
-            continue
-        by_len = sorted(nonempty, key=len)
-        draft = by_len[len(by_len) // 2]
-        drafts0.append(draft)
-        W = _band_width(_bucket_size(len(draft)))
-        assert len(draft) + W // 2 <= BUCKETS[-1], \
-            "oversized window reached the bucket pipeline unsplit"
-        S = _bucket_size(len(draft) + W // 2)
-        groups.setdefault(S, []).append(wi)
+    with trace.span("consensus.plan"):
+        groups: dict[int, list[int]] = {}
+        drafts0: list[np.ndarray] = []
+        for wi, codes in enumerate(window_codes):
+            nonempty = [c for c in codes if len(c) > 0]
+            if not nonempty:
+                drafts0.append(np.zeros(0, np.uint8))
+                results[wi] = np.zeros(0, np.uint8)
+                continue
+            by_len = sorted(nonempty, key=len)
+            draft = by_len[len(by_len) // 2]
+            drafts0.append(draft)
+            W = _band_width(_bucket_size(len(draft)))
+            assert len(draft) + W // 2 <= BUCKETS[-1], \
+                "oversized window reached the bucket pipeline unsplit"
+            S = _bucket_size(len(draft) + W // 2)
+            groups.setdefault(S, []).append(wi)
 
-    pending = []
-    for S, wins in sorted(groups.items()):
-        W = _band_width(S)
-        sub: list[list[int]] = [[]]
-        acc = 0
-        for wi in wins:
-            cnt = sum(1 for c in window_codes[wi] if 0 < len(c) <= S)
-            if acc + cnt > MAX_READS * mesh.size and sub[-1]:
-                sub.append([])
-                acc = 0
-            sub[-1].append(wi)
-            acc += cnt
-        # launch every group before collecting any: kernels queue on the
-        # stream while the host packs the next group
-        pending.extend(
-            _dispatch_group(window_codes, drafts0, win_list, S, W, match,
-                            mismatch, gap, rounds, mesh)
-            for win_list in sub
-        )
-    for p in pending:
-        _collect_group(p, results, warn)
+        subs: list[tuple[int, list[int]]] = []
+        for S, wins in sorted(groups.items()):
+            sub: list[list[int]] = [[]]
+            acc = 0
+            for wi in wins:
+                cnt = sum(1 for c in window_codes[wi] if 0 < len(c) <= S)
+                if acc + cnt > MAX_READS * mesh.size and sub[-1]:
+                    sub.append([])
+                    acc = 0
+                sub[-1].append(wi)
+                acc += cnt
+            subs.extend((S, win_list) for win_list in sub)
+
+    # launch every group before collecting any: kernels queue on the
+    # stream while the host packs the next group
+    pending = [
+        _dispatch_group(window_codes, drafts0, win_list, S, _band_width(S),
+                        match, mismatch, gap, rounds, mesh)
+        for S, win_list in subs
+    ]
+    trace.count("consensus.n_dropped",
+                sum(_collect_group(p, results, warn) for p in pending))
     return [r if r is not None else np.zeros(0, np.uint8) for r in results]
 
 
@@ -487,7 +492,8 @@ def _pack_group(window_codes, drafts0, win_list, S):
 
 def _collect_group(pending, results, warn):
     """Copy one dispatched group's drafts back (span ``consensus.wait``)
-    and unpack its windows (``consensus.unpack``)."""
+    and unpack its windows (``consensus.unpack``); returns the number of
+    reads it skipped (band-incompatible or longer than its bucket)."""
     packed, tail, win_list, S, B, n_skipped_long = pending
     with trace.span("consensus.wait"):
         t0 = time.perf_counter()
@@ -513,3 +519,4 @@ def _collect_group(pending, results, warn):
         for li, wi in enumerate(win_list):
             results[wi] = _unpack_host(packed[li], int(d_lens[li]))
         _prof("unpack", time.perf_counter() - t0)
+    return n_drop

@@ -244,10 +244,20 @@ def test_readers_on_a_hand_built_record():
              ("asm.parse.paf", 103.0, 105.0),
              ("asm.snapshot.longread", 105.0, 105.5),
              ("asm.step.consensus", 106.5, 109.0),
+             ("consensus.edges", 106.5, 106.55),
+             ("consensus.windows", 106.55, 106.75),
+             ("consensus.encode", 106.75, 106.8),
+             ("consensus.plan", 106.8, 106.85),
+             ("consensus.pack", 106.85, 106.9),
+             ("consensus.dispatch", 106.9, 107.0),
              ("consensus.wait", 107.0, 107.25),
-             ("consensus.wait", 108.0, 108.5)]
+             ("consensus.unpack", 107.25, 107.5),
+             ("consensus.wait", 108.0, 108.5),
+             ("consensus.decode", 108.5, 108.6),
+             ("consensus.log", 108.6, 108.9)]
     counts = {"asm.paf.records": 40, "asm.paf.cigars": 20,
-              "asm.paf.kept": 5}
+              "asm.paf.kept": 5, "consensus.extract.bases": 800,
+              "consensus.extract.kept": 200}
     # an older run that the window's passes do not hold
     _record([("asm.run", 0.0, 50.0), ("asm.parse.paf", 1.0, 40.0)])
     _record(spans, counts)
@@ -259,6 +269,12 @@ def test_readers_on_a_hand_built_record():
     assert _reader("asm.snapshot_s")(ctx) == pytest.approx(0.25 + 0.5)
     assert _reader("asm.cigar_waste_pct")(ctx) == pytest.approx(75.0)
     assert _reader("consensus.wait_s")(ctx) == pytest.approx(0.75)
+    # windows, encode, plan, pack, unpack, decode, log; not the edges,
+    # the dispatch or the waits
+    assert _reader("consensus.glue_s")(ctx) == \
+        pytest.approx(0.2 + 0.05 + 0.05 + 0.05 + 0.25 + 0.1 + 0.3)
+    assert _reader("consensus.extract_waste_pct")(ctx) == \
+        pytest.approx(75.0)
     # idle outside every step: 106-106.5 less the kernel at 106.1-106.3,
     # and 109-110; the second pass's 126-126.5 is all busy
     assert _reader("asm.unspanned_idle_s")(ctx) == \
@@ -269,7 +285,8 @@ def test_readers_find_nothing_without_runs():
     ctx = {"passes": [{}], "events": [("k", 0.0, 1.0)]}
     for name in ("asm.paf_s", "asm.fasta_s", "asm.snapshot_s",
                  "asm.cigar_waste_pct", "consensus.wait_s",
-                 "asm.unspanned_idle_s"):
+                 "asm.unspanned_idle_s", "consensus.glue_s",
+                 "consensus.extract_waste_pct"):
         assert _reader(name)(ctx) is None, name
 
 
