@@ -6,6 +6,14 @@ FASTA/PAF (``index.contig``: Contig.cpp:119-159, ``index.longread``:
 Longread.cpp:322-372, consumed at main.cpp:39-52,65-103).  Here the same
 snapshots are ``.npz`` archives of the flat store arrays plus a structured
 alignment table with flattened CIGAR op/len streams.
+
+The archives are written with ``np.savez``: every member is stored
+(``ZIP_STORED``), as the reference's raw dumps are, not deflated.  The
+deflate was nearly all of a write's time; the cost is disk: a snapshot
+is about the size of the inputs it stands in for (the long-read index of
+~145 Mbp of nanopore reads is ~165 MB, against ~48 MB deflated).
+``np.load`` reads stored and deflated members alike, so snapshots of
+either kind resume in either package.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ _ALN_FIELDS = [
 
 
 def write_contig_index(path: str, contigs: ContigStore) -> None:
-    np.savez_compressed(
+    np.savez(
         path,
         packed=contigs.seqs.packed,
         offsets=contigs.seqs.offsets,
@@ -64,7 +72,7 @@ def write_longread_index(path: str, lrs: LongreadStore) -> None:
         if alns else np.zeros(0, np.int64)
     )
     per_read = np.array([len(x) for x in lrs.alignments], dtype=np.int64)
-    np.savez_compressed(
+    np.savez(
         path,
         packed=lrs.seqs.packed,
         offsets=lrs.seqs.offsets,

@@ -85,6 +85,8 @@ def _load_inputs(contig_path, long_path, mapping_path, out_dir, cfg, t,
                 contigs = ContigStore.load_fasta(contig_path)
             with trace.span("asm.snapshot.contig"):
                 index_io.write_contig_index(contig_idx, contigs)
+                trace.count("asm.snapshot.bytes",
+                            os.path.getsize(contig_idx))
             print(f"       loaded {len(contigs)} contigs", file=log)
 
     with _step(t, "uniq_freq",
@@ -125,6 +127,7 @@ def _load_inputs(contig_path, long_path, mapping_path, out_dir, cfg, t,
         print(f"       loaded {n_aln} alignments", file=log)
         with trace.span("asm.snapshot.longread"):
             index_io.write_longread_index(lr_idx, lrs)
+            trace.count("asm.snapshot.bytes", os.path.getsize(lr_idx))
     return contigs, uniq_freq, lrs, n_aln
 
 

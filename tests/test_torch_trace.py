@@ -154,6 +154,14 @@ def test_steps_tile_the_run(traced):
     assert counts["consensus.n_reads"] >= counts["consensus.n_windows"]
 
 
+def test_snapshot_bytes_are_the_index_files(golden, traced):
+    """A fresh run counts the bytes of the two snapshots it wrote."""
+    d, _paths = golden
+    sizes = sum(os.path.getsize(d / "traced" / f"index.{kind}.npz")
+                for kind in ("contig", "longread"))
+    assert trace.counters_of(traced[0])["asm.snapshot.bytes"] == sizes > 0
+
+
 def test_traced_log_has_the_untraced_lines(golden, traced):
     _stats, log = _assemble(golden, "untraced")
 
