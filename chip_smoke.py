@@ -55,7 +55,8 @@ then the same paths under the wavefront engine (``nw.ENGINE =
 
 7. the oracle: ``nw.banded_nw_batch`` + ``traceback_batch`` equal to
    ``nw.align_mapping_device`` (wavefront) on 4096 in-gate reads at two
-   shapes, and how many rows the row-scan engine's mapping differs in;
+   shapes, and how many rows the row-scan engine's mapping (B3) differs
+   in; B3, B5 and B6 each launched there;
 8. the golden assembly again, byte for byte;
 9. the consensus workload: windows/s, the card equal to the CPU plain
    path on 256 windows, how many windows differ from phase 5's, and V1
@@ -83,8 +84,7 @@ neither a launch on a second card nor a speed-up):
     mesh, equal to phase 9's output on all 4096 windows (B4 a shard);
     V1 once a round and shard in 11a and 11e;
 
-then the modules that hold no kernel of their own, or reach one off the
-default path:
+then the modules that hold no kernel of their own:
 
 12. the device k-mer counters on phase 6's short reads (40x of 4.6 Mb,
     k = 49, abundance 3): ``count_kmers_device`` on the whole
@@ -95,12 +95,7 @@ default path:
     streaming=True)`` writing phase 6's SR contigs byte for byte;
 12b. the streaming counter's sharded phase-2 merge over phase 11's mesh
     and its disk spill, on 11c's long reads, each equal to the native
-    count;
-13. the chunked consensus engine (``batched_consensus(engine=
-    "chunked")``) on the consensus workload under both NW engines, with
-    the vote tables on the card and on the host, each equal to phase 5's
-    dense output on all 4096 windows; B3's and B5's launches and device
-    ms on that path.
+    count.
 
 The bound of a kernel is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its int32 operations on this
@@ -145,7 +140,7 @@ KERNELS = {
     "rowscan_cigar": ("haslr_tpu_torch/csrc/rowscan.cu",
                       "haslr_tpu/kernels/nw_rowscan.py:692", "e2e"),
     "rowscan_mapping": ("haslr_tpu_torch/csrc/rowscan.cu",
-                        "haslr_tpu/kernels/nw_rowscan.py:422", "chunked"),
+                        "haslr_tpu/kernels/nw_rowscan.py:422", "oracle"),
     "wavefront_votes": ("haslr_tpu_torch/csrc/wavefront.cu",
                         "haslr_tpu/kernels/nw_pallas.py:266", "e2e_wf"),
     "wavefront_mapping": ("haslr_tpu_torch/csrc/wavefront.cu",
@@ -1571,36 +1566,6 @@ def phase_kmer_sharded(dev, mesh, tmp, k=49, min_count=2):
     return rec
 
 
-def phase_chunked(dev, windows, dense_out):
-    """Phase 13: the chunked consensus engine under both NW engines, the
-    vote tables on the card and on the host, each equal to phase 5's
-    dense output on every window; B3's and B5's launches and device ms
-    on this path."""
-    from haslr_tpu_torch.kernels.consensus import batched_consensus
-
-    rec = {}
-    with launch_log() as by_bucket:
-        for engine in ("rowscan", "wavefront"):
-            with nw_engine(engine):
-                for device_pileup in (True, False):
-                    t0 = time.time()
-                    out = batched_consensus(windows, engine="chunked",
-                                            device_pileup=device_pileup,
-                                            device=dev)
-                    dt = time.time() - t0
-                    n_diff = sum(a != b for a, b in zip(out, dense_out))
-                    if n_diff or len(out) != len(dense_out):
-                        raise AssertionError(
-                            f"chunked engine ({engine}, device_pileup="
-                            f"{device_pileup}) differs from phase 5 on "
-                            f"{n_diff} of {len(windows)} windows")
-                    rec[f"{engine}_device_pileup_{device_pileup}"] = {
-                        "seconds": dt, "windows_per_s": len(windows) / dt,
-                        "windows_equal_to_phase_5": len(windows)}
-    rec["launches_by_bucket"] = by_bucket
-    return rec
-
-
 def _check_e2e(rec, names, what):
     if rec["n_contigs"] != 1 or rec["kmer31_recall"] < 0.999:
         raise AssertionError(
@@ -1816,16 +1781,6 @@ def main():
         _line("12b k-mer merge on the mesh, spill", card=smi,
               mesh=[str(d) for d in mesh.devices],
               **phase_kmer_sharded(dev, mesh, tmp))
-
-        reset_launches()
-        rec_chunked = phase_chunked(dev, windows, rowscan_out)
-        path_launches["chunked"] = launches()
-        _line("13 chunked consensus", card=smi, **rec_chunked,
-              launches=path_launches["chunked"])
-        for name in ("rowscan_mapping", "wavefront_mapping"):
-            if path_launches["chunked"][name] <= 0:
-                raise AssertionError(f"kernel {name} not launched by the "
-                                     "chunked engine")
 
     # the NW kernels at B=2048, S=512, W=128 (no PyTorch call computes a
     # banded NW); V1 at the consensus workload's round, beside one matmul

@@ -35,8 +35,12 @@ def _one_thread():
 def wavefront(monkeypatch):
     """Both packages on the wavefront engine for one test, restored after
     it (the module global would otherwise leak into later tests)."""
-    monkeypatch.setattr(nw, "ENGINE", "wavefront")
-    monkeypatch.setattr(pnw, "ENGINE", "wavefront")
+    _set_engines(monkeypatch, "wavefront")
+
+
+def _set_engines(monkeypatch, engine):
+    monkeypatch.setattr(nw, "ENGINE", engine)
+    monkeypatch.setattr(pnw, "ENGINE", engine)
 
 
 def _mutate(rng, s, err):
@@ -52,6 +56,10 @@ def _mutate(rng, s, err):
             if r < err:
                 out.append(int(rng.integers(0, 4)))
     return np.array(out, np.uint8)
+
+
+def _mutate_str(rng, s, rate):
+    return cseq.decode(_mutate(rng, cseq.encode(s), rate))
 
 
 def _windows(seed, lengths, n_support, err):
@@ -115,26 +123,10 @@ def test_dense_consensus_matches_reference_oversized(small_buckets):
 def _engines_agree_windows():
     """The windows of ``test_nw_rowscan.test_consensus_engines_agree``."""
     rng = np.random.default_rng(23)
-    bases = "ACGT"
-
-    def mutate(s, rate=0.07):
-        out = []
-        for ch in s:
-            r = rng.random()
-            if r < rate / 3:
-                continue
-            if r < 2 * rate / 3:
-                out.append(bases[rng.integers(0, 4)])
-            else:
-                out.append(ch)
-                if r < rate:
-                    out.append(bases[rng.integers(0, 4)])
-        return "".join(out)
-
     windows = []
     for L in (60, 200, 500, 900):
-        true = "".join(bases[i] for i in rng.integers(0, 4, L))
-        windows.append([mutate(true) for _ in range(9)])
+        true = "".join("ACGT"[i] for i in rng.integers(0, 4, L))
+        windows.append([_mutate_str(rng, true, 0.07) for _ in range(9)])
     return windows + [[], ["ACGT"]]
 
 
@@ -155,6 +147,107 @@ def test_dense_consensus_matches_reference_wavefront(wavefront):
                  pcd.dense_consensus(wins, device="cpu"))
     windows = _engines_agree_windows()
     assert batched_consensus(windows) == p_batched(windows, device="cpu")
+
+
+EDGE_READ = "ACGTTGCAGGACCATAGGACCA"
+
+
+def str_windows(seed, lengths, rate, edge_cases):
+    """Windows of nine mutated copies of a random sequence a length;
+    with ``edge_cases`` also an empty, a single-read, an all-empty and
+    an identical-read window."""
+    rng = np.random.default_rng(seed)
+    windows = []
+    for L in lengths:
+        true = "".join("ACGT"[i] for i in rng.integers(0, 4, L))
+        windows.append([_mutate_str(rng, true, rate) for _ in range(9)])
+    if edge_cases:
+        windows += [[], ["ACGT"], ["", ""], [EDGE_READ] * 3]
+    return windows
+
+
+# the two window sets of the reference's engine tests
+# (tests/test_consensus_kernel.py:129-190): 80, 250 and 600 bp, and 60,
+# 200 and 500 bp with the edge windows
+WINDOW_SETS = {
+    "pileups": (21, (80, 250, 600), 0.07, False),
+    "engines": (33, (60, 200, 500), 0.07, True),
+}
+
+
+@pytest.mark.parametrize("engine", ["rowscan", "wavefront"])
+@pytest.mark.parametrize("which", sorted(WINDOW_SETS))
+def test_batched_consensus_matches_jax_dense_and_chunked(which, engine,
+                                                         monkeypatch):
+    """The port's one engine gives the JAX package's output under either
+    of its engines: the dense one and the chunked one (one align + vote
+    round a host hop), under both NW engines."""
+    from haslr_tpu.kernels.consensus import batched_consensus as ref
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    _set_engines(monkeypatch, engine)
+    windows = str_windows(*WINDOW_SETS[which])
+    got = batched_consensus(windows, device="cpu")
+    for jax_engine in ("dense", "chunked"):
+        assert got == ref(windows, engine=jax_engine), jax_engine
+
+
+EDGE_WINDOWS = {
+    "empty_window": ([[]], [""]),
+    "single_read": ([["ACGT"]], ["ACGT"]),
+    "empty_reads": ([["", ""]], [""]),
+    "no_windows": ([], []),
+    "identical_reads": ([[EDGE_READ] * 3], [EDGE_READ]),
+}
+
+
+@pytest.mark.parametrize("which", sorted(EDGE_WINDOWS) + ["mixed"])
+def test_batched_consensus_edge_windows(which):
+    """Windows the rounds cannot polish come back as the JAX dense engine
+    gives them, alone and mixed among ordinary windows."""
+    from haslr_tpu.kernels.consensus import batched_consensus as ref
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    if which == "mixed":
+        ordinary = str_windows(9, (70, 180, 320), 0.05, False)
+        windows = [ordinary[0], [], ["ACGT"], ordinary[1], ["", ""],
+                   [EDGE_READ] * 3, ordinary[2]]
+        want = ref(windows)
+        assert [want[i] for i in (1, 2, 4, 5)] == ["", "ACGT", "",
+                                                   EDGE_READ]
+    else:
+        windows, want = EDGE_WINDOWS[which]
+        assert ref(windows) == want
+    assert batched_consensus(windows, device="cpu") == want
+
+
+@pytest.mark.parametrize("engine", ["rowscan", "wavefront"])
+def test_dense_rounds_run_the_engines_votes_kernel(engine, monkeypatch):
+    """Every round of every dispatch reaches the active NW engine's
+    vote-plane wrapper (B1 under the row-scan engine, B4 under the
+    wavefront), and never the other engine's."""
+    from haslr_tpu_torch.kernels.consensus import batched_consensus
+
+    calls = {"rowscan": 0, "wavefront": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    _set_engines(monkeypatch, engine)
+    monkeypatch.setattr(pcd, "rowscan_votes",
+                        spy("rowscan", pcd.rowscan_votes))
+    monkeypatch.setattr(pcd, "wavefront_votes",
+                        spy("wavefront", pcd.wavefront_votes))
+    monkeypatch.setattr(pcd, "PROF", {})
+    windows = str_windows(5, (120, 300), 0.05, False)
+    batched_consensus(windows, rounds=2, device="cpu")
+    # two buckets (S = 256 and 512), one dispatch each
+    assert pcd.PROF["n_dispatch"] == 2
+    other = ({"rowscan", "wavefront"} - {engine}).pop()
+    assert calls == {engine: 2 * 2, other: 0}
 
 
 def test_pack2_and_unpack_roundtrip():

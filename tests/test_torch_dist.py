@@ -262,6 +262,24 @@ def test_sharded_consensus_matches_single_and_jax(consensus_refs, monkeypatch,
     assert batched_consensus(_windows(), mesh=cpu_mesh(n)) == single
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_dense_consensus_edge_windows(n):
+    """The engine-agreement windows, with the empty, single-read,
+    all-empty and identical-read windows among them, through
+    ``dense_consensus`` on a mesh: the same drafts as one device."""
+    from haslr_tpu_torch.core import seq as pseq
+    from haslr_tpu_torch.kernels.consensus_dense import dense_consensus
+    from test_torch_consensus import WINDOW_SETS, str_windows
+
+    codes = [[pseq.encode(s) for s in w if s]
+             for w in str_windows(*WINDOW_SETS["engines"])]
+    single = dense_consensus(codes, device="cpu")
+    got = dense_consensus(codes, mesh=cpu_mesh(n))
+    assert len(got) == len(single) == len(codes)
+    for a, b in zip(got, single):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_sharded_consensus_multibucket_multisubgroup(monkeypatch):
     """Three buckets, each split into several dispatches by a lowered
     read cap (``MAX_READS`` a device, times the mesh's size), on a

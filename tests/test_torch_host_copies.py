@@ -115,12 +115,6 @@ PARTIAL = {
         "on a device or a torch mesh",
         ["pack2", "_PartitionStore"],
     ),
-    "kernels/consensus.py": (
-        "the chunked engine aligns with the port's mapping kernels and "
-        "votes in the port's DevicePileup; batched_consensus takes a "
-        "torch device or mesh",
-        ["BUCKETS", "_bucket_size", "_band_width", "_Pileup"],
-    ),
     "cli/haslr.py": (
         "--device beside --devices; the mesh is built once, of --device's "
         "kind; the stages run in spans of the port's trace (--trace)",
@@ -202,7 +196,7 @@ def test_every_port_module_is_accounted_for():
     own = {
         "__init__.py", "device.py", "aligner/__init__.py",
         "assemble/__init__.py", "cli/__init__.py", "kernels/__init__.py",
-        "kernels/_build.py", "kernels/pileup.py",
+        "kernels/_build.py", "kernels/consensus.py",
         "kernels/consensus_dense.py", "kernels/nw.py",
         "dist/__init__.py", "dist/mesh.py", "dist/consensus_step.py",
         "cli/haslr_assemble.py",

@@ -131,14 +131,20 @@ def test_vote_tables_match_mapping_scatter(W):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), name)
 
 
-@pytest.mark.parametrize("engine", ["rowscan", "wavefront"], indirect=True)
-def test_align_mapping_device_matches_reference(engine):
+@pytest.mark.parametrize(
+    "engine,S,W",
+    [pytest.param(e, S, W, id=e if S == 256 else f"{e}-S{S}-W{W}")
+     for S, W in ((256, 128), (512, 128), (2048, 256))
+     for e in ("rowscan", "wavefront")],
+    indirect=["engine"])
+def test_align_mapping_device_matches_reference(engine, S, W):
     """``align_mapping_device`` under either engine: the same mapping and
     dtype as the JAX function under the same engine (row-scan: B3's
-    plain version; wavefront: B5's)."""
-    _ja, _ta, arrays = _batch(17, 16, 256, 128)
-    ref = nw.align_mapping_device(*arrays, 128, 2, -4, -2)
-    got = pnw.align_mapping_device(*arrays, 128, 2, -4, -2, device="cpu")
+    plain version; wavefront: B5's), at S = 256 and at the bucket shapes
+    S = 512 / W = 128 and S = 2048 / W = 256."""
+    _ja, _ta, arrays = _batch(17, 16, S, W)
+    ref = nw.align_mapping_device(*arrays, W, 2, -4, -2)
+    got = pnw.align_mapping_device(*arrays, W, 2, -4, -2, device="cpu")
     assert got.dtype == ref.dtype == np.int16
     np.testing.assert_array_equal(ref, got)
 

@@ -55,7 +55,6 @@ def test_port_file_list_is_whole():
                 "haslr_tpu_torch/dist/consensus_step.py",
                 "haslr_tpu_torch/kernels/kmer.py",
                 "haslr_tpu_torch/kernels/kmer_stream.py",
-                "haslr_tpu_torch/kernels/pileup.py",
                 "haslr_tpu_torch/cli/haslr_assemble.py",
                 "haslr_tpu_torch/trace.py"):
         assert rel in PORT_FILES
@@ -152,8 +151,6 @@ def _entry_points():
             nw.align_mapping_device(*_tiny_batch(), **kw),
         "banded_nw_batch": lambda **kw:
             nw.banded_nw_batch(*_tiny_batch(), **kw),
-        "chunked_consensus": lambda **kw: kcons.batched_consensus(
-            [["ACGT" * 10] * 3], engine="chunked", **kw),
         "count_kmers_device": lambda **kw: kmer.count_kmers_device(
             np.zeros(40, np.uint8), 21, **kw),
         "count_kmers_streaming": lambda **kw:
@@ -175,9 +172,9 @@ ENTRY_POINTS = ["run_assembler", "calc_consensus", "map_reads",
                 "batch_align_segments", "batched_consensus",
                 "dense_consensus", "cigar_runs_device_raw",
                 "align_mapping_device_raw", "align_mapping_device",
-                "banded_nw_batch", "chunked_consensus",
-                "count_kmers_device", "count_kmers_streaming",
-                "assemble_unitigs", "assemble_short_reads"]
+                "banded_nw_batch", "count_kmers_device",
+                "count_kmers_streaming", "assemble_unitigs",
+                "assemble_short_reads"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -197,7 +194,6 @@ def test_entry_point_takes_the_card_by_default(name, tmp_path, monkeypatch):
                                   "dense_consensus",
                                   "cigar_runs_device_raw",
                                   "align_mapping_device",
-                                  "chunked_consensus",
                                   "count_kmers_device",
                                   "count_kmers_streaming",
                                   "assemble_unitigs"])
